@@ -43,7 +43,7 @@ from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "tf_ref" / "e2e_eval.npz"
 
-# H100 SXM published dense peaks (on-chip-measurement guide's table)
+# H100 SXM published dense peaks (NVIDIA H100 datasheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
