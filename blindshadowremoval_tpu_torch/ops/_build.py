@@ -5,8 +5,7 @@ interface, compiled by nvcc into a shared library and loaded with ctypes.
 Libraries go to `blindshadowremoval_tpu_torch/_build/`, named by a hash of
 their source and flags, so an edited source rebuilds and an unchanged one
 is reused.  Nothing is built when a module is imported: `load` builds on the
-first launch, and `build` compiles several libraries at once (one nvcc
-process each, started together).
+first launch.
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -31,9 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register / shared-memory report) of this process's
-# builds, by library name
-build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -51,36 +46,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names=None) -> dict[str, float]:
-    """Compile the named libraries (all by default) that are not built yet,
-    one nvcc process each, all started together.  Returns the seconds each
-    build took (0.0 when it was already built); raises with nvcc's output
-    when one fails."""
-    names = list(SOURCES) if names is None else list(names)
+def build(name: str) -> str:
+    """Compile library `name` unless it is built already.  Returns nvcc's
+    output (ptxas's register and shared-memory report), "" when nothing was
+    built; raises with that output when nvcc fails."""
+    so = library_path(name)
+    if so.is_file():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        so = library_path(name)
-        if so.is_file():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
-    failed = []
-    for name, (proc, tmp, so, t0) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        build_logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return seconds
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -88,6 +70,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib

@@ -21,6 +21,15 @@ from blindshadowremoval_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_D = (128, 256)
 
+# How far the kernel may lie from the plain version, as (atol, rtol) in
+# |out - ref| <= atol + rtol * |ref|.  bf16: both round each output once to
+# bf16, at most one ulp (2^-7 of |ref|) apart, after rounding their weights
+# at different points (the kernel exp(s - running max), the plain version
+# the normalized weights), which moves the f32 result by up to ~4e-4 at
+# N <= 1024, D <= 256 with unit-variance scores.  f32: summation order only.
+KERNEL_TOLERANCE = {torch.bfloat16: (8e-4, 2.0 ** -7),
+                    torch.float32: (1e-6, 1e-5)}
+
 
 def nonlocal_attention_reference(theta: torch.Tensor, phi: torch.Tensor,
                                  g: torch.Tensor) -> torch.Tensor:
@@ -35,9 +44,9 @@ def nonlocal_attention_reference(theta: torch.Tensor, phi: torch.Tensor,
 def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """softmax(theta . phi^T) . g.  CPU tensors: the plain version.  CUDA
-    tensors: the Hopper kernel, which takes contiguous [B, N, D] bf16 or
-    f32 tensors on one device with D in {128, 256}, and raises on anything
-    else."""
+    tensors: the Hopper kernel, which takes contiguous, 16-byte aligned
+    [B, N, D] bf16 or f32 tensors on one device with D in {128, 256}, and
+    raises on anything else."""
     if all(t.device.type == "cpu" for t in (theta, phi, g)):
         return nonlocal_attention_reference(theta, phi, g)
     return _launch(theta, phi, g)
@@ -81,6 +90,11 @@ def _launch(theta: torch.Tensor, phi: torch.Tensor,
             and g.is_contiguous()):
         raise ValueError("nonlocal_attention: the kernel takes contiguous "
                          "tensors")
+    # the kernel loads 16-byte vectors: a view at an odd storage offset
+    # would fault asynchronously, after the launch reported success
+    if any(t.data_ptr() % 16 for t in (theta, phi, g)):
+        raise ValueError("nonlocal_attention: the kernel takes tensors whose "
+                         "data is 16-byte aligned")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (theta, phi, g)):
         raise NotImplementedError(
