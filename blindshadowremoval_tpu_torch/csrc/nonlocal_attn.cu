@@ -26,6 +26,10 @@
 //    so strict-f32 parity needs no bypass.  Not on the serving path.
 //  * A ragged tail of N is masked: missing keys score -inf, missing query
 //    rows are computed on zeros and not stored.
+//  * Training: when `lse` is not null, the kernel also writes each row's
+//    logsumexp (f32, [B, N]), max + log(sum), which the backward kernel
+//    (nonlocal_attn_bwd.cu) takes to recompute the weights without a second
+//    softmax pass.  The serving path passes null and writes nothing extra.
 //  Not yet: wgmma, TMA, cp.async double buffering, warp specialisation.
 //
 // Numerics: the TPU kernel casts the NORMALIZED weights to g's dtype before
@@ -104,7 +108,8 @@ __global__ void __launch_bounds__(kBfThreads)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int n) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              int n) {
   constexpr int LD = D + kBfPad;
   constexpr int kTiles = kBfBlockN / 8;   // n8 tiles of the score block
   constexpr int kOut = D / 8;             // n8 tiles of the output block
@@ -230,6 +235,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const float inv0 = 1.f / row_sum[0];
   const float inv1 = 1.f / row_sum[1];
   const int row = m0 + wr + grp;
+  if (lse != nullptr && tig == 0) {
+    if (row < n) lse[(size_t)blockIdx.y * n + row] = row_max[0] + logf(row_sum[0]);
+    if (row + 8 < n) {
+      lse[(size_t)blockIdx.y * n + row + 8] = row_max[1] + logf(row_sum[1]);
+    }
+  }
 #pragma unroll
   for (int t = 0; t < kOut; ++t) {
     const int col = t * 8 + tig * 2;
@@ -253,7 +264,8 @@ constexpr int kF32RowsPerWarp = kF32BlockM / (kF32Threads / 32);
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int n) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int n) {
   constexpr int LDK = D + 1;      // lane j reads K row j: stride D+1 keeps
                                   // the 32 lanes on 32 banks
   constexpr int kCols = D / 32;   // output columns per lane
@@ -332,6 +344,9 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kF32RowsPerWarp; ++r) {
     const int row = m0 + warp * kF32RowsPerWarp + r;
     if (row >= n) continue;
+    if (lse != nullptr && lane == 0) {
+      lse[(size_t)blockIdx.y * n + row] = row_max[r] + logf(row_sum[r]);
+    }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       o[base + (size_t)row * D + lane + 32 * c] = acc[r][c] / row_sum[r];
@@ -341,7 +356,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int batch, int n, cudaStream_t stream) {
+                        float* lse, int batch, int n, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kBfBlockM + 2 * kBfBlockN) * (D + kBfPad) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
@@ -350,13 +365,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((n + kBfBlockM - 1) / kBfBlockM, batch);
   attn_fwd_bf16<D><<<grid, kBfThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      n);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int batch, int n, cudaStream_t stream) {
+                       float* lse, int batch, int n, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kF32BlockM * D + kF32BlockN * (D + 1) + kF32BlockN * D) *
       sizeof(float);
@@ -366,7 +382,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((n + kF32BlockM - 1) / kF32BlockM, batch);
   attn_fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), n);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, n);
   return cudaGetLastError();
 }
 
@@ -374,16 +390,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t value.
+// dtype: 0 = float32, 1 = bfloat16.  `lse` ([B, N] f32) may be null.
+// Returns a cudaError_t value.
 int bsr_nonlocal_attn_fwd(const void* theta, const void* phi, const void* g,
-                          void* out, int batch, int n, int d, int dtype,
-                          void* stream) {
+                          void* out, void* lse, int batch, int n, int d,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (batch < 1 || batch > 65535 || n < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && d == 128) return (int)launch_bf16<128>(theta, phi, g, out, batch, n, s);
-  if (dtype == 1 && d == 256) return (int)launch_bf16<256>(theta, phi, g, out, batch, n, s);
-  if (dtype == 0 && d == 128) return (int)launch_f32<128>(theta, phi, g, out, batch, n, s);
-  if (dtype == 0 && d == 256) return (int)launch_f32<256>(theta, phi, g, out, batch, n, s);
+  if (dtype == 1 && d == 128) return (int)launch_bf16<128>(theta, phi, g, out, l, batch, n, s);
+  if (dtype == 1 && d == 256) return (int)launch_bf16<256>(theta, phi, g, out, l, batch, n, s);
+  if (dtype == 0 && d == 128) return (int)launch_f32<128>(theta, phi, g, out, l, batch, n, s);
+  if (dtype == 0 && d == 256) return (int)launch_f32<256>(theta, phi, g, out, l, batch, n, s);
   return (int)cudaErrorInvalidValue;
 }
 

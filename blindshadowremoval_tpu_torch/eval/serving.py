@@ -33,6 +33,7 @@ from blindshadowremoval_tpu_torch.geometry.triangulation import (
     generate_uv_map,
 )
 from blindshadowremoval_tpu_torch.models import build_generator
+from blindshadowremoval_tpu_torch.ops.image import dequantize
 
 
 @dataclasses.dataclass
@@ -120,7 +121,7 @@ class ShadowRemovalService:
             uv, reg, face = maps["uv"], maps["reg"], maps["face"]
         else:
             (img, uv, reg), face = staged, None
-        _, rgb, _, dif = self.gen(_dequant(img), _dequant(uv), reg)
+        _, rgb, _, dif = self.gen(dequantize(img), dequantize(uv), reg)
         rgb = rgb.clamp(0.0, 1.0)
         if face is not None:
             dif = dif * face
@@ -162,14 +163,6 @@ class ShadowRemovalService:
             chunk = views[start:start + bs]
             results.extend(self.forward_staged(self.stage(chunk), chunk))
         return results
-
-
-def _dequant(x: torch.Tensor) -> torch.Tensor:
-    """uint16 [0,1] fixed point -> f32 on the device; anything else as is.
-    uint16 takes few torch ops, so it is converted before any arithmetic."""
-    if x.dtype == torch.uint16:
-        return x.to(torch.float32) / 65535.0
-    return x
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

@@ -3,29 +3,75 @@
 
 `tf.image.resize(bilinear)`, which the reference uses everywhere, samples
 at half-pixel centres with edge clamping and does not blur on downsample.
-`F.interpolate(mode="bilinear", align_corners=False, antialias=False)` is
-the same sampling rule.
+As in the JAX package the resample is two products with static [out, in]
+interpolation matrices (out = A_h . x . A_w^T): the taps are placed in
+float64 on the host, the weights are float32, and the matrix is cast to the
+input's dtype.  Its backward is two more products, which the gradient loss
+runs at five scales.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
-import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """[out, in] bilinear interpolation matrix: half-pixel centres, edge
+    clamp, floor/ceil corners (warp.py:28-42, value for value)."""
+    pos = (np.arange(out_size, dtype=np.float64) + 0.5) * (
+        in_size / out_size) - 0.5
+    pos = np.clip(pos, 0.0, in_size - 1.0)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.ceil(pos).astype(np.int64)
+    f = (pos - lo).astype(np.float32)
+    a = np.zeros((out_size, in_size), np.float32)
+    a[np.arange(out_size), lo] += 1.0 - f
+    a[np.arange(out_size), hi] += f
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def _matrix(out_size: int, in_size: int, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    # cached across calls, so never an inference tensor: a first call under
+    # torch.inference_mode must not stop later calls from saving it for
+    # backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
+            device=device, dtype=dtype)
 
 
 def resize_bilinear_nchw(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """[B, C, H, W] -> [B, C, *size]."""
-    if tuple(x.shape[-2:]) == tuple(size):
+    """[B, C, H, W] -> [B, C, *size], in x's memory format, as F.interpolate
+    keeps it: a channels-last input (an NHWC tensor seen through a permute)
+    is resized in NHWC without a copy, and the convolutions around it do not
+    transpose."""
+    if not x.is_contiguous() and x.is_contiguous(
+            memory_format=torch.channels_last):
+        return resize_bilinear(x.permute(0, 2, 3, 1), size).permute(0, 3, 1, 2)
+    h, w = x.shape[-2:]
+    oh, ow = size
+    if (h, w) == (oh, ow):
         return x
-    return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
-                         antialias=False)
+    a_h = _matrix(oh, h, x.dtype, x.device)
+    a_w = _matrix(ow, w, x.dtype, x.device)
+    return torch.matmul(torch.matmul(a_h, x), a_w.t())
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """[..., H, W, C] -> [..., *size, C] (the JAX package's NHWC layout)."""
+    """[..., H, W, C] -> [..., *size, C] (the JAX package's NHWC layout),
+    the H product first, as the JAX package orders them."""
     *lead, h, w, c = x.shape
-    if (h, w) == tuple(size):
+    oh, ow = size
+    if (h, w) == (oh, ow):
         return x
-    xb = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    y = resize_bilinear_nchw(xb, size).permute(0, 2, 3, 1)
-    return y.reshape(*lead, size[0], size[1], c)
+    a_h = _matrix(oh, h, x.dtype, x.device)
+    a_w = _matrix(ow, w, x.dtype, x.device)
+    xb = x.reshape(-1, h, w * c)
+    y = torch.matmul(a_h, xb).reshape(-1, oh, w, c)          # [b, O, w, c]
+    y = torch.matmul(a_w, y)                                  # [b, O, P, c]
+    return y.reshape(*lead, oh, ow, c)

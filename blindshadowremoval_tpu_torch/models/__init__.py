@@ -1,4 +1,4 @@
-"""Generator models of the port."""
+"""Models of the port: the GSC generator, its discriminators and VGG."""
 
 from __future__ import annotations
 
@@ -24,15 +24,20 @@ def build_generator(config: Config, state_dict: dict | None = None,
                     device: str | torch.device | None = None,
                     seed: int = 0) -> GSCGenerator:
     """The GSC generator of `config` in eval mode, on `device` (CUDA unless
-    the caller passes "cpu"), in the config's compute dtype, with its
-    BatchNorms folded when `config.fold_bn` is set.
+    the caller passes "cpu"), computing in the config's compute dtype, with
+    its BatchNorms folded when `config.fold_bn` is set.
 
     `state_dict` holds unfolded weights (`models/weights.py` makes one from
     JAX variables or TF-named arrays); without it the weights are
-    Glorot-uniform from `seed`.  Folding runs in float32 before the cast."""
+    Glorot-uniform from `seed`.  Parameters and BatchNorm statistics stay
+    f32, as Flax keeps them; a folded model has no BatchNorm left, so its
+    weights are stored in the compute dtype (folded in f32 first), which
+    spares every serving call the casts."""
     dev = resolve_device(device)
     model = GSCGenerator(n_res=config.n_res,
-                         egress_dtype=config.torch_egress_dtype)
+                         egress_dtype=config.torch_egress_dtype,
+                         dtype=config.torch_compute_dtype,
+                         remat=config.remat)
     if state_dict is None:
         _glorot_init(model, seed)
     else:
@@ -40,4 +45,5 @@ def build_generator(config: Config, state_dict: dict | None = None,
     model.eval()
     if config.fold_bn:
         fold_batch_norm(model)
-    return model.to(device=dev, dtype=config.torch_compute_dtype)
+        return model.to(device=dev, dtype=config.torch_compute_dtype)
+    return model.to(dev)

@@ -13,21 +13,32 @@
 
 Inputs and outputs are NHWC, as in the JAX package: forward(inputs
 [B,H,W,3], uv [B,H,W,3]) -> (gs [B,H,W,1], con_rgb [B,H,W,3], mask22
-[B,H,W,3], dif [B,H,W,1]) in `egress_dtype`.  The compute dtype is the
-dtype of the module's parameters (`module.to(torch.bfloat16)`).
+[B,H,W,3], dif [B,H,W,1]) in `egress_dtype`.  Activations run in `dtype`
+(the compute dtype); parameters keep the dtype they were made in, f32 for
+training, and each convolution casts its weights to its input's dtype.
+
+Training: `model.train()` puts every BatchNorm on batch statistics with
+Flax's running update (`models/blocks.py:BatchNorm`).  `remat=True`
+recomputes each ResBottleneck in the backward pass
+(`torch.utils.checkpoint`), and the recompute leaves the running statistics
+alone, so they move once per step as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from blindshadowremoval_tpu_torch.geometry.warp import resize_bilinear_nchw
 from blindshadowremoval_tpu_torch.models.blocks import (
     ConvBlock,
     ConvTBlock,
     ResBottleneck,
+    frozen_stats,
 )
 from blindshadowremoval_tpu_torch.ops.image import rgb_to_grayscale
 
@@ -40,9 +51,12 @@ class GSCGenerator(nn.Module):
     """Two-stage grayscale-then-RGB deshadowing generator."""
 
     def __init__(self, n_res: int = 6, fold_bn: bool = False,
-                 egress_dtype: torch.dtype = torch.float32):
+                 egress_dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.egress_dtype = egress_dtype
+        self.dtype = dtype
+        self.remat = remat
         fb = dict(fold_bn=fold_bn)
         self.conv1 = ConvBlock(3, N_CH[0], ksize=7, **fb)
         self.down1 = ConvBlock(N_CH[0], N_CH[1], stride=2, **fb)
@@ -75,7 +89,7 @@ class GSCGenerator(nn.Module):
     def forward(self, inputs: torch.Tensor, uv: torch.Tensor,
                 reg: torch.Tensor | None = None):
         del reg   # accepted for API parity; the GSC variant has no ShareLayer
-        dtype = self.conv1.conv.weight.dtype
+        dtype = self.dtype
         x = inputs.permute(0, 3, 1, 2).to(dtype)          # NCHW
 
         # ---- encoder ------------------------------------------------
@@ -91,7 +105,7 @@ class GSCGenerator(nn.Module):
         x = torch.cat([x, uv_small], dim=1)
         half = self.n_res // 2
         for blk in self.res[:half]:
-            x = blk(x)
+            x = self._res(blk, x)
 
         # ---- grayscale head -----------------------------------------
         y = self.up1(x)
@@ -107,11 +121,13 @@ class GSCGenerator(nn.Module):
         mask22 = torch.cat([F.relu(mask), mask * 0.0, F.relu(-mask)], dim=1)
 
         # ---- RGB head -----------------------------------------------
-        # binary shadow mask at bottleneck resolution, from an f32 resize
-        bmask = (resize_bilinear_nchw(dif.float(), (h, w)) > 0.1).to(dtype)
+        # binary shadow mask at bottleneck resolution, from an f32 resize;
+        # no gradient flows through it (generator.py:123-125)
+        bmask = (resize_bilinear_nchw(dif.detach().float(), (h, w))
+                 > 0.1).to(dtype)
         x = torch.cat([x * (1.0 - bmask), bmask, uv_small], dim=1)
         for blk in self.res[half:]:
-            x = blk(x)
+            x = self._res(blk, x)
         f = self.clr_up1(x)
         f = self.clr_up2(f)
         f = self.clr_up3(f)
@@ -127,3 +143,12 @@ class GSCGenerator(nn.Module):
         con_rgb = nhwc(con_rgb).to(et)
         dif_out = rgb_to_grayscale(con_rgb) - rgb_to_grayscale(inputs.to(et))
         return (nhwc(gs).to(et), con_rgb, nhwc(mask22).to(et), dif_out)
+
+    def _res(self, blk: ResBottleneck, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return blk(x)
+        # the recompute in backward sees the same input, so the same batch
+        # statistics, and must not move the running statistics again
+        return checkpoint(blk, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_stats(blk)))

@@ -1,9 +1,12 @@
-"""Weight bridges into the port's GSCGenerator `state_dict`.
+"""Weight bridges into the port's `state_dict`s.
 
 Two sources, both plain numpy, so neither needs JAX or TensorFlow:
 
   * `from_jax_variables`: the JAX package's generator variables
-    (`{params, batch_stats}`, or a folded `{params}` tree), as numpy.
+    (`{params, batch_stats}`, or a folded `{params}` tree), as numpy;
+    `discriminator_from_jax` and `vgg_from_jax` do the same for the
+    discriminator trio and VGG-19, so tests start both packages from one
+    JAX initialization.
   * `load_tf_weights`: a `{tf_name: array}` dict in the reference's TF
     checkpoint naming, through the gsc name mapping (a port of
     `blindshadowremoval_tpu/models/tf_checkpoint.py:generator_mapping`).
@@ -93,6 +96,34 @@ def from_jax_variables(tree: Any) -> dict[str, torch.Tensor]:
         else:
             sd.update(block_from_jax(node, stats.get(top, {}), "conv",
                                      f"{top}."))
+    return sd
+
+
+def discriminator_from_jax(tree: Any) -> dict[str, torch.Tensor]:
+    """JAX MultiScaleDiscriminators variables (`{params, batch_stats}`,
+    numpy leaves) -> a state_dict of the port's MultiScaleDiscriminators."""
+    params = tree["params"]
+    stats = tree.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    for top, disc in params.items():           # disc1, disc2, disc3
+        k = int(top[len("disc"):]) - 1
+        for name, node in disc.items():         # conv0.., head
+            prefix = (f"discs.{k}.head." if name == "head" else
+                      f"discs.{k}.convs.{int(name[len('conv'):])}.")
+            sd.update(block_from_jax(node, stats.get(top, {}).get(name, {}),
+                                     "conv", prefix))
+    return sd
+
+
+def vgg_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """JAX VGG19Features params (`{block1_conv1: {kernel, bias}, ...}`) ->
+    a state_dict of the port's VGG19Features; the layers the port does not
+    run (past block5_conv1) are dropped."""
+    from blindshadowremoval_tpu_torch.models.vgg import conv_names
+
+    sd: dict[str, torch.Tensor] = {}
+    for name in conv_names():
+        _conv_from_flax(sd, f"convs.{name}", params[name], transpose=False)
     return sd
 
 

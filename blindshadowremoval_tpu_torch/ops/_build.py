@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
 
 # library name -> its source, relative to the package
-SOURCES = {"nonlocal_attn": "csrc/nonlocal_attn.cu"}
+SOURCES = {"nonlocal_attn": "csrc/nonlocal_attn.cu",
+           "nonlocal_attn_bwd": "csrc/nonlocal_attn_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,23 +47,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _start(name: str):
+    """(process, temporary output) of nvcc building library `name`, or None
+    when it is built already."""
+    so = library_path(name)
+    if so.is_file():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp = started
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
+                           f"{proc.returncode}):\n{log}")
+    os.replace(tmp, library_path(name))   # atomic: a concurrent loader
+    return log                            # sees all or none
+
+
 def build(name: str) -> str:
     """Compile library `name` unless it is built already.  Returns nvcc's
     output (ptxas's register and shared-memory report), "" when nothing was
     built; raises with that output when nvcc fails."""
-    so = library_path(name)
-    if so.is_file():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
-    return proc.stdout
+    return _finish(name, _start(name))
+
+
+def build_all() -> dict[str, str]:
+    """Compile every library not built yet, one nvcc per source, all
+    started together.  Returns {name: nvcc output}."""
+    started = {name: _start(name) for name in SOURCES}
+    return {name: _finish(name, proc) for name, proc in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,13 +1,17 @@
 """NonLocal attention, out = softmax(theta . phi^T) . g over [B, N, D].
 
-Port of `blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py`.  The TPU
-kernel `_attn_kernel` becomes the hand-written Hopper kernel in
-`csrc/nonlocal_attn.cu` (its header says what bounds it and how the design
-answers that); `nonlocal_attention_reference` is its plain PyTorch version.
+Port of `blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py`.  Its two TPU
+kernels become hand-written Hopper kernels: the forward `_attn_kernel` in
+`csrc/nonlocal_attn.cu` (K1) and the backward `_attn_bwd_kernel` in
+`csrc/nonlocal_attn_bwd.cu` (K2); each source's header says what bounds it
+and how the design answers that.  `nonlocal_attention_reference` and
+`nonlocal_attention_bwd_reference` are their plain PyTorch versions.
 
 Dispatch is by where the tensors live, and nothing else: CPU tensors take
-the plain version, CUDA tensors launch the kernel or raise.  There is no
-fallback from the kernel to the plain version.
+the plain versions, CUDA tensors launch the kernels or raise.  There is no
+fallback from a kernel to its plain version.  With autograd recording,
+`nonlocal_attention` is one `torch.autograd.Function` on both devices: on
+the card K1 also saves the row logsumexp, and the backward launches K2.
 """
 
 from __future__ import annotations
@@ -21,19 +25,35 @@ from blindshadowremoval_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_D = (128, 256)
 
-# How far the kernel may lie from the plain version, as (atol, rtol) in
-# |out - ref| <= atol + rtol * |ref|.  bf16: both round each output once to
-# bf16, at most one ulp (2^-7 of |ref|) apart, after rounding their weights
-# at different points (the kernel exp(s - running max), the plain version
-# the normalized weights), which moves the f32 result by up to ~4e-4 at
-# N <= 1024, D <= 256 with unit-variance scores.  f32: summation order only.
+# How far a kernel may lie from its plain version, as (atol, rtol) in
+# |out - ref| <= atol + rtol * |ref|, checked per output tensor.
+#
+# K1, bf16: both round each output once to bf16, at most one ulp (2^-7 of
+# |ref|) apart, after rounding their weights at different points (the
+# kernel exp(s - running max), the plain version the normalized weights),
+# which moves the f32 result by up to ~4e-4 at N <= 1024, D <= 256 with
+# unit-variance scores.  f32: summation order only.
 KERNEL_TOLERANCE = {torch.bfloat16: (8e-4, 2.0 ** -7),
                     torch.float32: (1e-6, 1e-5)}
+# K2, bf16: the plain backward keeps W and dS in f32, as the TPU kernel
+# does; K2 rounds P = exp(S - lse) to bf16 as the operand of dg = P^T dO,
+# and dS to bf16 as the operand of dtheta = dS phi and dphi = dS^T theta,
+# and takes Delta = rowsum(dO o O) from the bf16 forward output; each
+# gradient is then rounded once to bf16 (2^-7 of |ref|).  With operands of
+# 0.3 randn (unit-variance scores at D = 128) and dO of randn, as
+# chip_smoke.py and the card tests use, a CPU emulation of those roundings
+# (tests/test_torch_nonlocal_attn.py, numpy seed 0) gives
+# max(err - 2^-7 |ref|) of 5.5e-4 at N = 1024, D = 128, 9.3e-4 at ragged
+# N = 200 and 1.6e-3 at D = 256 (gradients up to ~1.5 there); a Delta off
+# by 3% gives 3.9e-3 to 1.2e-2, P and dS rounded to fp8 2.2e-2 or more.
+# f32: summation order and the exp of the saved logsumexp only.
+KERNEL_BWD_TOLERANCE = {torch.bfloat16: (2.5e-3, 2.0 ** -7),
+                        torch.float32: (1e-5, 1e-5)}
 
 
 def nonlocal_attention_reference(theta: torch.Tensor, phi: torch.Tensor,
                                  g: torch.Tensor) -> torch.Tensor:
-    """Plain version: f32 scores and softmax, weights cast to g's dtype,
+    """Plain forward: f32 scores and softmax, weights cast to g's dtype,
     second product accumulated in f32 and cast back (the TPU kernel's
     numerics).  No 1/sqrt(D) scale."""
     scores = torch.matmul(theta.float(), phi.float().transpose(1, 2))
@@ -41,74 +61,163 @@ def nonlocal_attention_reference(theta: torch.Tensor, phi: torch.Tensor,
     return torch.matmul(w.float(), g.float()).to(g.dtype)
 
 
+def nonlocal_attention_bwd_reference(theta: torch.Tensor, phi: torch.Tensor,
+                                     g: torch.Tensor, dout: torch.Tensor):
+    """Plain backward (the JAX package's `_attention_bwd_xla`, :167-178,
+    with f32 scores as its TPU kernel takes them): recompute
+    W = softmax(theta phi^T), then dW = dO g^T, dg = W^T dO,
+    dS = W o (dW - rowsum(dW o W)), dtheta = dS phi, dphi = dS^T theta, all
+    in f32.  Each cotangent takes its own primal's dtype."""
+    t32, p32, g32 = theta.float(), phi.float(), g.float()
+    w = torch.softmax(torch.matmul(t32, p32.transpose(1, 2)), dim=-1)
+    do32 = dout.float()
+    dw = torch.matmul(do32, g32.transpose(1, 2))
+    dg = torch.matmul(w.transpose(1, 2), do32)
+    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    dtheta = torch.matmul(ds, p32)
+    dphi = torch.matmul(ds.transpose(1, 2), t32)
+    return dtheta.to(theta.dtype), dphi.to(phi.dtype), dg.to(g.dtype)
+
+
+class _NonLocalAttention(torch.autograd.Function):
+    """Forward K1 (saving the row logsumexp) and backward K2 on the card;
+    the plain forward and plain backward on the CPU."""
+
+    @staticmethod
+    def forward(ctx, theta, phi, g):
+        if _on_cpu(theta, phi, g):
+            out, lse = nonlocal_attention_reference(theta, phi, g), None
+        else:
+            out, lse = _launch_fwd(theta, phi, g, with_lse=True)
+        ctx.save_for_backward(theta, phi, g, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        theta, phi, g, out, lse = ctx.saved_tensors
+        if lse is None:
+            return nonlocal_attention_bwd_reference(theta, phi, g, dout)
+        return nonlocal_attention_bwd(theta, phi, g, out, lse,
+                                      dout.contiguous())
+
+
 def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """softmax(theta . phi^T) . g.  CPU tensors: the plain version.  CUDA
-    tensors: the Hopper kernel, which takes contiguous, 16-byte aligned
-    [B, N, D] bf16 or f32 tensors on one device with D in {128, 256}, and
-    raises on anything else."""
-    if all(t.device.type == "cpu" for t in (theta, phi, g)):
+    tensors: K1, which takes contiguous, 16-byte aligned [B, N, D] bf16 or
+    f32 tensors on one device with D in {128, 256}, and raises on anything
+    else.  Differentiable on both: the backward is K2 on the card."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (theta, phi, g)):
+        return _NonLocalAttention.apply(theta, phi, g)
+    if _on_cpu(theta, phi, g):
         return nonlocal_attention_reference(theta, phi, g)
-    return _launch(theta, phi, g)
+    return _launch_fwd(theta, phi, g, with_lse=False)[0]
 
 
-# kernel launches made by this process; tests and chip_smoke.py reset it
+# kernel launches made by this process; tests and chip_smoke.py reset them
 nonlocal_attention.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("nonlocal_attn")
-    fn = lib.bsr_nonlocal_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check(name: str, tensors: dict) -> tuple[int, int, int]:
+    """The kernels' contract; raises on anything they cannot take.
+    Returns (B, N, D)."""
+    first = next(iter(tensors.values()))
+    dev, dtype, shape = first.device, first.dtype, first.shape
+    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"{name}: {', '.join(tensors)} must lie on one CUDA "
+                         f"device, got "
+                         f"{[str(t.device) for t in tensors.values()]}")
+    if dtype not in _DTYPE_CODE or any(t.dtype != dtype
+                                       for t in tensors.values()):
+        raise TypeError(f"{name}: the kernel takes bf16 or f32, all alike; "
+                        f"got {[str(t.dtype) for t in tensors.values()]}")
+    if len(shape) != 3 or any(t.shape != shape for t in tensors.values()):
+        raise ValueError(f"{name}: the kernel takes [B,N,D] tensors of one "
+                         f"shape; got "
+                         f"{[tuple(t.shape) for t in tensors.values()]}")
+    b, n, d = shape
+    if d not in SUPPORTED_D:
+        raise ValueError(f"{name}: D={d} is not one of {SUPPORTED_D}")
+    if not all(t.is_contiguous() for t in tensors.values()):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    # the kernels load 16-byte vectors: a view at an odd storage offset
+    # would fault asynchronously, after the launch reported success
+    if any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError(f"{name}: the kernel takes tensors whose data is "
+                         "16-byte aligned")
+    return b, n, d
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
     lib.bsr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bsr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(theta: torch.Tensor, phi: torch.Tensor,
-            g: torch.Tensor) -> torch.Tensor:
-    dev = theta.device
-    if dev.type != "cuda" or phi.device != dev or g.device != dev:
-        raise ValueError("nonlocal_attention: theta, phi and g must lie on "
-                         f"one CUDA device, got {theta.device}, {phi.device}, "
-                         f"{g.device}")
-    if theta.dtype not in _DTYPE_CODE or not (
-            theta.dtype == phi.dtype == g.dtype):
-        raise TypeError("nonlocal_attention: the kernel takes bf16 or f32, "
-                        f"all alike; got {theta.dtype}, {phi.dtype}, "
-                        f"{g.dtype}")
-    if theta.dim() != 3 or not (theta.shape == phi.shape == g.shape):
-        raise ValueError("nonlocal_attention: the kernel takes three [B,N,D] "
-                         f"tensors of one shape; got {tuple(theta.shape)}, "
-                         f"{tuple(phi.shape)}, {tuple(g.shape)}")
-    b, n, d = theta.shape
-    if d not in SUPPORTED_D:
-        raise ValueError(f"nonlocal_attention: D={d} is not one of "
-                         f"{SUPPORTED_D}")
-    if not (theta.is_contiguous() and phi.is_contiguous()
-            and g.is_contiguous()):
-        raise ValueError("nonlocal_attention: the kernel takes contiguous "
-                         "tensors")
-    # the kernel loads 16-byte vectors: a view at an odd storage offset
-    # would fault asynchronously, after the launch reported success
-    if any(t.data_ptr() % 16 for t in (theta, phi, g)):
-        raise ValueError("nonlocal_attention: the kernel takes tensors whose "
-                         "data is 16-byte aligned")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (theta, phi, g)):
-        raise NotImplementedError(
-            "nonlocal_attention: the backward kernel (K2) is not ported yet "
-            "(ROADMAP slice C); run the forward under torch.no_grad()")
-    lib = _library()
-    out = torch.empty_like(theta)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bsr_nonlocal_attn_fwd(
-            theta.data_ptr(), phi.data_ptr(), g.data_ptr(), out.data_ptr(),
-            b, n, d, _DTYPE_CODE[theta.dtype], stream)
+def _raise_on(err: int, lib: ctypes.CDLL, name: str) -> None:
     if err != 0:
-        raise RuntimeError("nonlocal_attention: kernel launch failed: "
+        raise RuntimeError(f"{name}: kernel launch failed: "
                            + lib.bsr_cuda_error_string(err).decode())
+
+
+def _launch_fwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
+                with_lse: bool):
+    """K1.  Returns (out, lse): lse is the f32 row logsumexp [B, N] that K2
+    takes, written only when `with_lse`; else None."""
+    b, n, d = _check("nonlocal_attention",
+                     {"theta": theta, "phi": phi, "g": g})
+    lib = _library("nonlocal_attn")
+    fn = lib.bsr_nonlocal_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(theta)
+    lse = (torch.empty((b, n), dtype=torch.float32, device=theta.device)
+           if with_lse else None)
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = fn(theta.data_ptr(), phi.data_ptr(), g.data_ptr(),
+                 out.data_ptr(), lse.data_ptr() if with_lse else None,
+                 b, n, d, _DTYPE_CODE[theta.dtype], stream)
+    _raise_on(err, lib, "nonlocal_attention")
     nonlocal_attention.launches += 1
-    return out
+    return out, lse
+
+
+def nonlocal_attention_bwd(theta: torch.Tensor, phi: torch.Tensor,
+                           g: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, dout: torch.Tensor):
+    """K2: (dtheta, dphi, dg) of out = softmax(theta phi^T) g, from K1's
+    output and its row logsumexp `lse` [B, N] f32.  Same contract as K1,
+    with dout and out alike to theta; raises on anything else."""
+    b, n, d = _check("nonlocal_attention_bwd",
+                     {"theta": theta, "phi": phi, "g": g, "out": out,
+                      "dout": dout})
+    if (lse.device != theta.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, n) or not lse.is_contiguous()):
+        raise ValueError("nonlocal_attention_bwd: lse must be a contiguous "
+                         f"f32 [B, N] tensor on {theta.device}")
+    lib = _library("nonlocal_attn_bwd")
+    fn = lib.bsr_nonlocal_attn_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dtheta, dphi, dg = (torch.empty_like(theta), torch.empty_like(phi),
+                        torch.empty_like(g))
+    delta = torch.empty((b, n), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = fn(theta.data_ptr(), phi.data_ptr(), g.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(),
+                 dg.data_ptr(), b, n, d, _DTYPE_CODE[theta.dtype], stream)
+    _raise_on(err, lib, "nonlocal_attention_bwd")
+    nonlocal_attention_bwd.launches += 1
+    return dtheta, dphi, dg
+
+
+nonlocal_attention_bwd.launches = 0

@@ -2,18 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card, runs the GSC
-generator against the TF-reference golden, serves a batch of requests
-through `ShadowRemovalService` (the main path, counting kernel launches),
-times the bench.py configuration, and prints one JSON line per kernel and,
-last, `{"ok": true, "device": {...}}`.  Any failure ends the run with a
-non-zero exit and no result line.  Exits 1 at once when CUDA is absent.
-Imports nothing of JAX or of the JAX package.
+Builds the port's hand-written kernels from the sources in this checkout
+(one nvcc per source, started together), holds each against its plain
+PyTorch version on the card, runs the GSC generator against the
+TF-reference golden, serves a batch of requests through
+`ShadowRemovalService` (the serving path, counting kernel launches), times
+the bench.py configuration, runs the GSC GAN train step at full width (the
+train path, counting launches of the forward and backward kernels) and an
+f32 step against the same step on the CPU, and prints one JSON line with
+every kernel and, last, `{"ok": true, "device": {...}}`.  Any failure ends
+the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
+is absent.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -26,24 +30,46 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from blindshadowremoval_tpu_torch.config import get_config
+from blindshadowremoval_tpu_torch.data.synthesis import (
+    compose_from_draws,
+    draw_compose,
+)
 from blindshadowremoval_tpu_torch.eval.serving import ShadowRemovalService
 from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
     device_geometry_maps,
+    generate_face_region,
+    generate_uv_map,
 )
+from blindshadowremoval_tpu_torch.models import blocks as blocks_module
 from blindshadowremoval_tpu_torch.models import build_generator
+from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
 from blindshadowremoval_tpu_torch.models.generator import GSCGenerator
+from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
     generator_mapping,
     load_tf_weights,
     synthetic_tf_weights,
 )
 from blindshadowremoval_tpu_torch.ops import _build
+from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
+    KERNEL_BWD_TOLERANCE,
     KERNEL_TOLERANCE,
+    _launch_fwd,
     nonlocal_attention,
+    nonlocal_attention_bwd,
+    nonlocal_attention_bwd_reference,
     nonlocal_attention_reference,
 )
+from blindshadowremoval_tpu_torch.ops.filters import find_edge
+from blindshadowremoval_tpu_torch.ops.image import rgb_to_grayscale
+from blindshadowremoval_tpu_torch.train import trainer as trainer_module
+from blindshadowremoval_tpu_torch.train.losses import (
+    multi_scale_gradient_loss,
+    reconstruction_losses,
+)
+from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "tf_ref" / "e2e_eval.npz"
@@ -66,6 +92,42 @@ ATTN_CASES = [((128, 1024, 128), torch.bfloat16),   # bench batch
               ((4, 1024, 128), torch.float32),
               ((2, 200, 128), torch.bfloat16),      # ragged N
               ((2, 1024, 256), torch.bfloat16)]     # RGB's width
+# K2 against the plain backward, each within KERNEL_BWD_TOLERANCE[dtype]
+BWD_CASES = [((64, 1024, 128), torch.bfloat16),     # the train step's shape
+             ((2, 1024, 128), torch.float32),
+             ((2, 200, 128), torch.bfloat16),       # ragged N
+             ((2, 1024, 256), torch.bfloat16)]      # RGB's width
+
+# the train path: GSC at 256 px, bf16, batch 32 (64 views a step, the size
+# of docs/perf.md's fit() measurements)
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+# the card's f32 step against the CPU's: 64 px, n_res=2, 4 samples (8 views
+# through G, 16 through each discriminator's BatchNorms)
+CHECK_CFG = dict(img_size=64, n_res=2, batch_size=4, compute_dtype="float32",
+                 vgg_dtype="float32")
+# f32 on both sides with TF32 off; the card's cuDNN and cuBLAS sum in other
+# orders than the CPU's, and the step amplifies such rounding: on the CPU,
+# the batch perturbed by 1e-6 relative noise moves the worst tensor's first
+# moment by 1.1e-2 at 2 samples and 1.2e-2 at 4 (PERF.md), so more samples
+# do not condition it better; the phase reruns that perturbed CPU step and
+# prints it.  On the card the moments came within 5.3e-3 and the losses
+# within 1.5e-4 (the adversarial term, 0.059 in size: 8.6e-6 apart).  A wrong step moves far more: Delta =
+# rowsum(dO o O) off by 3% in K2 moves the worst first moment by 0.44,
+# attention operands rounded to bf16 by 0.29 and the losses by 2.6e-2; the
+# phase plants both on the card and fails unless the limits reject each.
+# So: losses within 1e-3 relative, Adam's first moments within 3e-2
+# (relative Frobenius norm, per tensor)
+CHECK_LOSS_RTOL = 1e-3
+CHECK_MOMENT_RTOL = 3e-2
+# a moment below CHECK_ZERO_SHARE of the largest on the CPU is a bias
+# feeding train-mode BatchNorm, zero in exact arithmetic (the perturbed CPU
+# step leaves 2.1e-6 of the largest, the card 1.1e-6): on the card it must
+# stay below CHECK_STRAY_SHARE, where K2 with the 3% Delta fault leaves
+# 6.9e-3
+CHECK_ZERO_SHARE = 1e-5
+CHECK_STRAY_SHARE = 1e-4
 
 
 def phase(name: str) -> None:
@@ -99,6 +161,20 @@ def attention_bound_ms(b: int, n: int, d: int, dtype: torch.dtype):
     output written once."""
     flops = 4.0 * b * n * n * d
     nbytes = 4.0 * b * n * d * torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bwd_bound_ms(b: int, n: int, d: int, dtype: torch.dtype):
+    """(least ms, "operations" | "bytes") for one K2 call: five N x N x D
+    products per batch element (S is needed by both passes); theta, phi, g,
+    out and dout read once, the f32 logsumexp read once, three gradients
+    written once."""
+    flops = 10.0 * b * n * n * d
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 8.0 * b * n * d * es + 4.0 * b * n
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -148,11 +224,16 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    log = _build.build("nonlocal_attn")
-    print(f"built nonlocal_attn in {time.perf_counter() - t0:.1f} s -> "
-          f"{_build.library_path('nonlocal_attn')}")
-    print("\n".join(ln for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln))
+    logs = _build.build_all()     # one nvcc per source, started together
+    print(f"built {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        print(f"{name} -> {_build.library_path(name)}")
+        # ptxas: each kernel's name, then its registers and spills
+        print("\n".join(ln.split("Function properties for ")[-1][:90]
+                        if "Function properties" in ln else ln
+                        for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "Function properties" in ln))
 
     phase("3 kernel K1 vs its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -183,6 +264,8 @@ def main() -> int:
                 ).to(torch.bfloat16) for _ in range(3))
     with torch.no_grad():
         k1_ms = cuda_ms(lambda: nonlocal_attention(t, p, g))
+        # the train path's K1 also writes the row logsumexp
+        k1_lse_ms = cuda_ms(lambda: _launch_fwd(t, p, g, with_lse=True))
         plain_ms = cuda_ms(lambda: nonlocal_attention_reference(t, p, g))
         # yardstick only: the port never calls it.  [B, 1, N, D] (one
         # head), with the flash backend forced, so the run fails rather than
@@ -195,8 +278,9 @@ def main() -> int:
         sdpa_err = (sdpa.float() - nonlocal_attention_reference(
             t, p, g).float()).abs().max().item()
     bound_ms, bound_by = attention_bound_ms(b, n, d, torch.bfloat16)
-    print(f"({b},{n},{d}) bf16: kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, flash sdpa {sdpa_ms:.4f} ms (max_abs_err vs plain "
+    print(f"({b},{n},{d}) bf16: kernel {k1_ms:.4f} ms (with the logsumexp "
+          f"write {k1_lse_ms:.4f} ms), plain {plain_ms:.4f} ms, flash sdpa "
+          f"{sdpa_ms:.4f} ms (max_abs_err vs plain "
           f"{sdpa_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}); kernel at "
           f"{100 * bound_ms / k1_ms:.1f}% of the bound", flush=True)
 
@@ -419,7 +503,24 @@ def main() -> int:
     for name, ms in sorted(by_block.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  {name}")
 
-    phase("7 kernels")
+    phase("7 kernel K2 vs its plain backward")
+    k2_err, k2_ms, bwd_plain_ms, sdpa_bwd_ms = check_k2(dev)
+    b, n, d = BWD_CASES[0][0]
+    k2_bound_ms, k2_bound_by = attention_bwd_bound_ms(b, n, d, torch.bfloat16)
+    print(f"({b},{n},{d}) bf16: kernel {k2_ms:.4f} ms, plain backward "
+          f"{bwd_plain_ms:.4f} ms, flash sdpa backward {sdpa_bwd_ms:.4f} ms, "
+          f"bound {k2_bound_ms:.4f} ms ({k2_bound_by}); kernel at "
+          f"{100 * k2_bound_ms / k2_ms:.1f}% of the bound", flush=True)
+
+    phase("8 train: the GSC GAN train step at full width, the train path")
+    k1_train, k2_train = train_full_width(dev, smi)
+
+    phase("9 the card's f32 train step against the CPU's")
+    card_vs_cpu_step(dev)
+
+    phase("10 kernels")
+    print(f"launches by path: serve K1 {main_launches}; train "
+          f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}")
     print(json.dumps({"kernels": [{
         "name": "nonlocal_attn_fwd",
         "route": "cuda",
@@ -432,11 +533,405 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": sdpa_ms,
+    }, {
+        "name": "nonlocal_attn_bwd",
+        "route": "cuda",
+        "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn_bwd.cu",
+        "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:117",
+        "launches": k2_train,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": k2_bound_ms,
+        "bound_by": k2_bound_by,
+        "library_ms": sdpa_bwd_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _excess(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
+    """The largest |out - ref| - rtol * |ref|, to hold against atol."""
+    return ((out.float() - ref.float()).abs()
+            - rtol * ref.float().abs()).max().item()
+
+
+def check_k2(dev):
+    """K2 (through the autograd Function, after K1) against the plain
+    backward and against autograd through the plain forward in f32, at
+    BWD_CASES; then K2's, the plain backward's and flash SDPA's backward
+    times at the train shape.  Returns (max_abs_err, ms, plain_ms,
+    library_ms)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def operands(shape, dtype):
+        t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
+                   for _ in range(3))
+        do = torch.randn(*shape, generator=gen, device=dev)
+        return [x.to(dtype) for x in (t, p, g, do)]
+
+    max_err = 0.0
+    for shape, dtype in BWD_CASES:
+        atol, rtol = KERNEL_BWD_TOLERANCE[dtype]
+        t, p, g, do = operands(shape, dtype)
+        leaves = [x.clone().requires_grad_() for x in (t, p, g)]
+        k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
+        grads = torch.autograd.grad(nonlocal_attention(*leaves), leaves, do)
+        torch.cuda.synchronize()
+        launched = (nonlocal_attention.launches - k1,
+                    nonlocal_attention_bwd.launches - k2)
+        ref = nonlocal_attention_bwd_reference(t, p, g, do)
+        leaves32 = [x.float().requires_grad_() for x in (t, p, g)]
+        auto = torch.autograd.grad(nonlocal_attention_reference(*leaves32),
+                                   leaves32, do.float())
+        ok = launched == (1, 1)
+        for name, a, r, au in zip(("dtheta", "dphi", "dg"), grads, ref, auto):
+            err = (a.float() - r.float()).abs().max().item()
+            ex, ex_auto = _excess(a, r, rtol), _excess(a, au, rtol)
+            good = (bool(torch.isfinite(a).all()) and a.dtype == dtype
+                    and ex <= atol and ex_auto <= atol)
+            ok = ok and good
+            max_err = max(max_err, err)
+            print(f"{shape} {str(dtype):15s} {name:6s} max_abs_err {err:.3e}, "
+                  f"max |ref| {r.float().abs().max().item():.3f}, "
+                  f"max(err - {rtol:.3g}|ref|) {ex:.3e} vs the plain "
+                  f"backward, {ex_auto:.3e} vs autograd of the plain "
+                  f"forward (atol {atol:g}) {'ok' if good else 'FAIL'}",
+                  flush=True)
+        if not ok:
+            raise SystemExit(f"K2 disagrees with its plain backward at "
+                             f"{shape} (launches K1, K2: {launched})")
+    (b, n, d), _ = BWD_CASES[0]
+    t, p, g, do = operands((b, n, d), torch.bfloat16)
+    with torch.no_grad():
+        out, lse = _launch_fwd(t, p, g, with_lse=True)
+        k2_ms = cuda_ms(lambda: nonlocal_attention_bwd(t, p, g, out, lse, do))
+        plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(t, p, g,
+                                                                    do))
+    # yardstick only: the port never calls it.  The backward of flash SDPA
+    # on [B, 1, N, D] with scale 1, the forward kept out of the timing; the
+    # gradients returned fresh, as K2's are, not accumulated into .grad
+    q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    do4 = do[:, None].contiguous()
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                                  retain_graph=True))
+    return max_err, k2_ms, plain_ms, sdpa_ms
+
+
+def synthetic_train_batch(views: int, size: int, device, seed: int = 0):
+    """A seeded synthetic train batch: uniform images and their darkened
+    twins, one random elliptic occluder mask a view, small offsets; the UV
+    and face maps of LM_REF from the port's host rasterizer."""
+    rng = np.random.default_rng(seed)
+    gt = rng.uniform(0.05, 0.95, (views, size, size, 3)).astype(np.float32)
+    dark = gt * rng.uniform(0.3, 0.7, (views, 1, 1, 1)).astype(np.float32)
+    yy, xx = np.mgrid[:size, :size] / size
+    cy, cx = rng.uniform(0.3, 0.7, (2, views, 1, 1))
+    ry, rx = rng.uniform(0.1, 0.3, (2, views, 1, 1))
+    mask = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0)
+    uv = generate_uv_map(LM_REF, size)
+    face = generate_face_region(LM_REF, size)
+    batch = {
+        "gt": gt, "img_dark": dark.astype(np.float32),
+        "mask": mask[..., None].astype(np.float32),
+        "uv": np.broadcast_to(uv, (views,) + uv.shape),
+        "face": np.broadcast_to(face, (views,) + face.shape),
+        "reg": rng.uniform(-0.02, 0.02, (views, size, size, 6)).astype(
+            np.float32)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def train_full_width(dev, smi: str):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of the GSC train step at 256 px,
+    n_res=6, bf16 compute and VGG, random VGG, no remat, batch TRAIN_BATCH;
+    the timed steps by CUDA events, with K1 and K2 counted.  Checks finite
+    losses, moving G and D parameters and 6 launches of each kernel a step,
+    then profiles one step.  Returns the (K1, K2) launches of the timed
+    steps."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("train", batch_size=TRAIN_BATCH,
+                     compute_dtype="bfloat16", vgg_dtype="bfloat16",
+                     remat=False)
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(seed=0)
+    views = 2 * cfg.batch_size
+    batch = synthetic_train_batch(views, cfg.img_size, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"{TRAIN_WARMUP} warm-up steps: {time.perf_counter() - t0:.1f} s")
+    g_before = [p.detach().clone() for p in state.gen.parameters()]
+    d_before = [p.detach().clone() for p in state.disc.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses = []
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, step_losses, _ = trainer.train_step(state, batch, gen)
+        losses.append(torch.stack([step_losses[k] for k in LOSS_NAMES]))
+    end.record()
+    torch.cuda.synchronize()
+    k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = torch.stack(losses).float().cpu().numpy()
+    print(f"{views} views of {cfg.img_size} px a step, bf16: {step_ms:.1f} "
+          f"ms/step, {views * 1e3 / step_ms:.1f} views/s, peak memory "
+          f"{peak:.2f} GiB ({smi}); K1 launches {k1}, K2 launches {k2} in "
+          f"{TRAIN_STEPS} steps", flush=True)
+    print("last step's losses: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in zip(LOSS_NAMES, vals[-1])))
+    moved_g = sum(not torch.equal(a, b) for a, b in
+                  zip(g_before, state.gen.parameters()))
+    moved_d = sum(not torch.equal(a, b) for a, b in
+                  zip(d_before, state.disc.parameters()))
+    print(f"parameter tensors moved: G {moved_g}/{len(g_before)}, "
+          f"D {moved_d}/{len(d_before)}")
+    if not np.isfinite(vals).all():
+        raise SystemExit("train: a loss is not finite")
+    if moved_g == 0 or moved_d == 0:
+        raise SystemExit("train: G or D parameters did not move")
+    want = ATTN_CALLS_PER_FORWARD * TRAIN_STEPS
+    if (k1, k2) != (want, want):
+        raise SystemExit(f"train: K1 {k1}, K2 {k2} launches, expected "
+                         f"{want} each")
+    forward_stages(state, batch, gen, step_ms)
+    # where the time goes: one step under torch.profiler
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        ((e.key, e.device_time_total / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.device_time_total > 0), key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    print(f"profiled step: {busy_ms:.2f} ms of device kernels in "
+          f"{wall_ms:.2f} ms wall (device idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, profiler on), "
+          f"{sum(c for _, _, c in kernels)} kernel launches")
+    for key, ms, count in kernels[:15]:
+        print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<4d} "
+              f"{key[:100]}")
+    by_kind: dict[str, list] = {}
+    for key, ms, count in kernels:
+        entry = by_kind.setdefault(kernel_kind(key), [0.0, 0])
+        entry[0] += ms
+        entry[1] += count
+    print("device time by kind of kernel (ms/step, share, launches):")
+    for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<5d} {kind}")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def forward_stages(state, batch, gen, step_ms: float) -> None:
+    """The forward side of the train step, stage by stage, without
+    autograd (CUDA events, 3 calls after 1): the compositor, the generator,
+    one discriminator pass, the two VGG passes and the losses.  The rest of
+    the step is the backward passes, the second discriminator pass and the
+    updates."""
+    b = batch
+    stages = {}
+    with torch.no_grad():
+        def compose():
+            return trainer_module.compose_shadow_image(
+                gen, b["mask"], b["gt"], b["img_dark"], b["face"])
+
+        stages["compositor"] = cuda_ms(compose, iters=3, warmup=1)
+        img, mask_sv, _ = compose()
+        stages["generator"] = cuda_ms(
+            lambda: state.gen(img, b["uv"], b["reg"]), iters=3, warmup=1)
+        gs, rgb, _, _ = state.gen(img, b["uv"], b["reg"])
+        d_in = torch.cat([torch.cat([b["gt"], rgb], 0),
+                          torch.cat([mask_sv, mask_sv], 0)], 3)
+        with frozen_stats(state.disc):
+            stages["discriminators (one pass)"] = cuda_ms(
+                lambda: state.disc(d_in), iters=3, warmup=1)
+        stages["VGG (real and fake)"] = cuda_ms(
+            lambda: (state.vgg(preprocess(b["gt"])),
+                     state.vgg(preprocess(rgb))), iters=3, warmup=1)
+        mask_bi = (mask_sv > 0.01).float()
+        mask_edge = find_edge(mask_sv)
+        gray = rgb_to_grayscale(b["gt"])
+        stages["losses (recon, gradient)"] = cuda_ms(
+            lambda: (reconstruction_losses(gs, rgb, b["gt"], gray, mask_bi,
+                                           mask_edge),
+                     multi_scale_gradient_loss(rgb, b["gt"], mask_bi,
+                                               mask_edge)),
+            iters=3, warmup=1)
+    total = sum(stages.values())
+    print("forward side by stage, without autograd (ms):")
+    for name, ms in stages.items():
+        print(f"  {ms:8.2f} ms  {100 * ms / step_ms:5.1f}% of a step  {name}")
+    print(f"  {step_ms - total:8.2f} ms  {100 * (step_ms - total) / step_ms:5.1f}"
+          f"% of a step  the rest (backward, second D pass, updates)",
+          flush=True)
+
+
+# (kind, substrings of a kernel's name), the first match wins
+_KERNEL_KINDS = (
+    ("layout transposes (cuDNN NCHW <-> NHWC)", ("nchwToNhwc", "nhwcToNchw")),
+    ("K1 and K2", ("attn_fwd", "bwd_dkdv", "bwd_dq", "bwd_delta")),
+    ("FFT (disc blurs)", ("fft",)),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
+    ("matrix products", ("gemm", "Kernel2")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("other elementwise", ("elementwise",)),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in _KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def _to(draws, device):
+    if isinstance(draws, dict):
+        return {k: _to(v, device) for k, v in draws.items()}
+    if isinstance(draws, list):
+        return [_to(v, device) for v in draws]
+    return draws.to(device)
+
+
+def _delta_fault(ctx, dout):
+    """The autograd Function's backward with K2 taking Delta = rowsum(dO o O)
+    3% too large: O enters K2 only there."""
+    theta, phi, g, out, lse = ctx.saved_tensors
+    return nonlocal_attention_bwd(theta, phi, g, 1.03 * out, lse,
+                                  dout.contiguous())
+
+
+def _bf16_fault(theta, phi, g):
+    """K1 (and K2) on operands rounded to bf16 inside the f32 step."""
+    return nonlocal_attention(*(x.to(torch.bfloat16).float()
+                                for x in (theta, phi, g)))
+
+
+def card_vs_cpu_step(dev):
+    """One f32 train step (TF32 off) on the card and on the CPU, on the same
+    batch and initial weights, with the randomness pinned: the same
+    compositor draws on both, no saturation jitter, no mirror swap.  Holds
+    the losses and Adam's first moments of G and D to CHECK_LOSS_RTOL and
+    CHECK_MOMENT_RTOL, and the moments that are zero in exact arithmetic to
+    CHECK_STRAY_SHARE.  Then plants two faults on the card and fails unless
+    the same limits reject each."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("train", **CHECK_CFG)
+    views = 2 * cfg.batch_size
+    batch = synthetic_train_batch(views, cfg.img_size, "cpu", seed=1)
+    draws = draw_compose(torch.Generator().manual_seed(2), views, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    perturbed = {k: v * (1.0 + 1e-6 * torch.randn(v.shape, generator=gen))
+                 for k, v in batch.items()}
+    cpu = torch.device("cpu")
+    # (label, device, batch, (owner, name, planted function) or None)
+    cases = (("card", dev, batch, None),
+             ("cpu", cpu, batch, None),
+             ("cpu+1e-6", cpu, perturbed, None),
+             ("card, K2 Delta x1.03", dev, batch,
+              (attn_module._NonLocalAttention, "backward",
+               staticmethod(_delta_fault))),
+             ("card, bf16 attention operands", dev, batch,
+              (blocks_module, "nonlocal_attention", _bf16_fault)))
+    compose = trainer_module.compose_shadow_image
+    runs = {}
+    for label, device, b, fault in cases:
+        saved = fault and inspect.getattr_static(fault[0], fault[1])
+        try:
+            trainer_module.compose_shadow_image = (
+                lambda gen, mask, gt, dark, face, _d=_to(draws, device):
+                compose_from_draws(_d, mask, gt, dark, face))
+            if fault:
+                setattr(fault[0], fault[1], fault[2])
+            trainer = Trainer(cfg, device=device)
+            trainer._saturation_aug = lambda gen, gt, dark: (gt, dark)
+            trainer._mirror_consistency = lambda gen, img: img
+            state = trainer.init_state(seed=0)
+            nonlocal_attention.launches = 0
+            nonlocal_attention_bwd.launches = 0
+            state, losses, _ = trainer.train_step(
+                state, {k: v.to(device) for k, v in b.items()},
+                torch.Generator(device=device))
+        finally:
+            trainer_module.compose_shadow_image = compose
+            if fault:
+                setattr(fault[0], fault[1], saved)
+        launches = (nonlocal_attention.launches,
+                    nonlocal_attention_bwd.launches)
+        moments = {
+            f"{net}.{n}": opt.state[p]["exp_avg"].cpu()
+            for net, module, opt in (("G", state.gen, state.gen_opt),
+                                     ("D", state.disc, state.disc_opt))
+            for n, p in module.named_parameters()}
+        runs[label] = ({k: float(v) for k, v in losses.items()}, moments,
+                       launches)
+    cpu_losses, cpu_mu, _ = runs["cpu"]
+    top = max(float(m.abs().max()) for m in cpu_mu.values())
+    zero = {n for n, m in cpu_mu.items()
+            if float(m.abs().max()) < CHECK_ZERO_SHARE * top}
+
+    def worst(label):
+        """(worst relative loss difference, (worst relative first-moment
+        difference, its tensor), largest |moment| / top over `zero`)."""
+        losses, mu, _ = runs[label]
+        loss = max(abs(losses[k] - cpu_losses[k])
+                   / max(abs(cpu_losses[k]), 1e-6) for k in LOSS_NAMES)
+        errs = [(float((mu[n] - m).norm() / m.norm()), n)
+                for n, m in cpu_mu.items() if n not in zero]
+        stray = max((float(mu[n].abs().max()) / top for n in zero),
+                    default=0.0)
+        return loss, max(errs), stray
+
+    print("launches (K1, K2): " + ", ".join(
+        f"{label} {runs[label][2]}" for label, *_ in cases))
+    print("losses card / CPU: " + ", ".join(
+        f"{k} {runs['card'][0][k]:.6g} / {cpu_losses[k]:.6g}"
+        for k in LOSS_NAMES))
+    print(f"{len(zero)} first moments below {CHECK_ZERO_SHARE:g} of the "
+          f"largest on the CPU (biases feeding train-mode BatchNorm)")
+    rejected = {}
+    for label, *_ in cases:
+        if label == "cpu":
+            continue
+        loss, (mu, name), stray = worst(label)
+        rejected[label] = not (loss <= CHECK_LOSS_RTOL
+                               and mu <= CHECK_MOMENT_RTOL)
+        print(f"{label} against cpu: worst relative loss difference "
+              f"{loss:.3e} (limit {CHECK_LOSS_RTOL:g}); worst first-moment "
+              f"difference {mu:.3e} at {name} (limit {CHECK_MOMENT_RTOL:g}); "
+              f"largest of the zero moments {stray:.3e} of the top (limit "
+              f"{CHECK_STRAY_SHARE:g} for the card)"
+              f"{'; rejected' if rejected[label] else ''}", flush=True)
+    want = 2 * (CHECK_CFG["n_res"],)
+    if any(runs[label][2] != (want if device.type == "cuda" else (0, 0))
+           for label, device, *_ in cases):
+        raise SystemExit("a card step did not launch K1 and K2 once per "
+                         "NonLocal block, or a CPU step did")
+    if rejected["card"] or worst("card")[2] >= CHECK_STRAY_SHARE:
+        raise SystemExit("the card's train step disagrees with the CPU's")
+    if not all(rejected[label] for label, _, _, fault in cases if fault):
+        raise SystemExit("the limits let a planted fault through")
 
 
 if __name__ == "__main__":

@@ -172,5 +172,9 @@ def test_config_rejects_unported_options():
                dict(int8_head=True), dict(s2d_convs=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
-        get_config("train")
+    # the train preset is ported; its device-darkening wire waits for the
+    # tone curve
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        get_config("train", device_darken=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        get_config("ucb")
