@@ -3,9 +3,9 @@
 Each kernel library is one `.cu` file under `csrc/` with a plain C
 interface, compiled by nvcc into a shared library and loaded with ctypes.
 Libraries go to `blindshadowremoval_tpu_torch/_build/`, named by a hash of
-their source and flags, so an edited source rebuilds and an unchanged one
-is reused.  Nothing is built when a module is imported: `load` builds on the
-first launch.
+their source, every header it includes from `csrc/` and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  Nothing is
+built when a module is imported: `load` builds on the first launch.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,17 +42,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """The source of library `name` and every file it includes with
+    quotes, directly or not, each resolved beside the file that includes
+    it; in the order found."""
+    found: list[Path] = []
+    todo = [(_PKG / SOURCES[name]).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [(path.parent / inc).resolve()
+                 for inc in _QUOTED_INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (_PKG / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, force: bool = False):
     """(process, temporary output) of nvcc building library `name`, or None
-    when it is built already."""
+    when it is built already and `force` is false."""
     so = library_path(name)
-    if so.is_file():
+    if so.is_file() and not force:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -80,10 +102,11 @@ def build(name: str) -> str:
     return _finish(name, _start(name))
 
 
-def build_all() -> dict[str, str]:
-    """Compile every library not built yet, one nvcc per source, all
-    started together.  Returns {name: nvcc output}."""
-    started = {name: _start(name) for name in SOURCES}
+def build_all(force: bool = False) -> dict[str, str]:
+    """Compile every library not built yet (every library when `force`),
+    one nvcc per source, all started together.  Returns {name: nvcc
+    output}."""
+    started = {name: _start(name, force) for name in SOURCES}
     return {name: _finish(name, proc) for name, proc in started.items()}
 
 

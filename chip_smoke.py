@@ -3,13 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from the sources in this checkout
-(one nvcc per source, started together), holds each against its plain
-PyTorch version on the card, runs the GSC generator against the
-TF-reference golden, serves a batch of requests through
-`ShadowRemovalService` (the serving path, counting kernel launches), times
-the bench.py configuration, runs the GSC GAN train step at full width (the
-train path, counting launches of the forward and backward kernels) and an
-f32 step against the same step on the CPU, and prints one JSON line with
+(one nvcc per source, started together) and fails if ptxas serialises the
+forward kernel's wgmma or spills it, holds each kernel against its plain
+PyTorch version on the card and times it beside flash SDPA, runs the GSC
+generator against the TF-reference golden, serves a batch of requests
+through `ShadowRemovalService` (the serving path, counting kernel launches),
+times the bench.py configuration, runs the GSC GAN train step at full width
+(the train path, counting launches of the forward and backward kernels) and
+an f32 step against the same step on the CPU, and prints one JSON line with
 every kernel and, last, `{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +58,7 @@ from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     KERNEL_BWD_TOLERANCE,
     KERNEL_TOLERANCE,
+    SUPPORTED_D,
     _launch_fwd,
     nonlocal_attention,
     nonlocal_attention_bwd,
@@ -91,7 +94,20 @@ ATTN_CASES = [((128, 1024, 128), torch.bfloat16),   # bench batch
               ((64, 1024, 128), torch.bfloat16),    # serve batch
               ((4, 1024, 128), torch.float32),
               ((2, 200, 128), torch.bfloat16),      # ragged N
-              ((2, 1024, 256), torch.bfloat16)]     # RGB's width
+              ((2, 1024, 256), torch.bfloat16),     # RGB's width
+              ((2, 1, 128), torch.bfloat16),        # one row
+              ((2, 129, 128), torch.bfloat16),      # one row past a tile
+              ((2, 129, 256), torch.bfloat16),      # ragged 64-key tiles
+              ((3, 200, 128), torch.bfloat16)]      # batch boundary, below
+# in this case batch element 1 is 50 randn, its neighbours 0.3 randn: a
+# ragged tile that read the next element's keys, or a store past row N,
+# would move the whole output out of tolerance
+BOUNDARY_SHAPE = (3, 200, 128)
+# K1 timed at (shape, with the logsumexp write): bench.py's forward, the
+# train step's, and the RGB variant's width at two batches; flash SDPA at
+# the same head dim is the yardstick of each
+K1_TIMED = [((128, 1024, 128), False), ((64, 1024, 128), True),
+            ((2, 1024, 256), False), ((64, 1024, 256), False)]
 # K2 against the plain backward, each within KERNEL_BWD_TOLERANCE[dtype]
 BWD_CASES = [((64, 1024, 128), torch.bfloat16),     # the train step's shape
              ((2, 1024, 128), torch.float32),
@@ -147,6 +163,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3) -> dict:
+    """{name: [ms per call, one per turn]} of each function in `fns`, timed
+    by cuda_ms in turns (a, b, a, b, ...) `reps` times.  The first function
+    runs alone for `settle_s` seconds before, so the card's clocks have left
+    the state the work before (a build, a burst of matrix products) put
+    them in."""
+    first = next(iter(fns.values()))
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < settle_s:
+        first()
+        torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn))
+    return times
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -224,7 +258,9 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    logs = _build.build_all()     # one nvcc per source, started together
+    # one nvcc per source, started together; built afresh even where a
+    # library is cached, so that ptxas reports on every kernel
+    logs = _build.build_all(force=True)
     print(f"built {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"{name} -> {_build.library_path(name)}")
@@ -234,14 +270,21 @@ def main() -> int:
                         for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Function properties" in ln))
+    faults = k1_ptxas_faults(logs["nonlocal_attn"])
+    if faults:
+        raise SystemExit("K1's bf16 kernels: " + "; ".join(faults))
 
     phase("3 kernel K1 vs its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     for shape, dtype in ATTN_CASES:
         atol, rtol = KERNEL_TOLERANCE[dtype]
-        t, p, g = ((0.3 * torch.randn(*shape, generator=gen, device=dev)
-                    ).to(dtype) for _ in range(3))
+        t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
+                   for _ in range(3))
+        if shape == BOUNDARY_SHAPE:
+            for x in (t, p, g):
+                x[1] = 50 * torch.randn(shape[1:], generator=gen, device=dev)
+        t, p, g = t.to(dtype), p.to(dtype), g.to(dtype)
         with torch.no_grad():
             out = nonlocal_attention(t, p, g)
             torch.cuda.synchronize()
@@ -258,31 +301,39 @@ def main() -> int:
               flush=True)
         if not ok:
             raise SystemExit(f"K1 disagrees with its plain version at {shape}")
-        max_err = max(max_err, err)
-    b, n, d = ATTN_CASES[0][0]
-    t, p, g = ((0.3 * torch.randn(b, n, d, generator=gen, device=dev)
-                ).to(torch.bfloat16) for _ in range(3))
-    with torch.no_grad():
-        k1_ms = cuda_ms(lambda: nonlocal_attention(t, p, g))
-        # the train path's K1 also writes the row logsumexp
-        k1_lse_ms = cuda_ms(lambda: _launch_fwd(t, p, g, with_lse=True))
-        plain_ms = cuda_ms(lambda: nonlocal_attention_reference(t, p, g))
+        if shape != BOUNDARY_SHAPE:   # 50 randn values: not a unit-scale error
+            max_err = max(max_err, err)
+    timed = {}
+    for (b, n, d), with_lse in K1_TIMED:
+        t, p, g = ((0.3 * torch.randn(b, n, d, generator=gen, device=dev)
+                    ).to(torch.bfloat16) for _ in range(3))
         # yardstick only: the port never calls it.  [B, 1, N, D] (one
-        # head), with the flash backend forced, so the run fails rather than
-        # time the unfused math fallback
+        # head), with the flash backend forced, so the run fails rather
+        # than time the unfused math fallback
         t4, p4, g4 = t[:, None], p[:, None], g[:, None]
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                t4, p4, g4, scale=1.0))
+        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            turns = alternate_ms({
+                "kernel": lambda: _launch_fwd(t, p, g, with_lse=with_lse),
+                "flash": lambda: F.scaled_dot_product_attention(
+                    t4, p4, g4, scale=1.0)})
+            plain_ms = cuda_ms(lambda: nonlocal_attention_reference(t, p, g))
             sdpa = F.scaled_dot_product_attention(t4, p4, g4, scale=1.0)[:, 0]
-        sdpa_err = (sdpa.float() - nonlocal_attention_reference(
-            t, p, g).float()).abs().max().item()
-    bound_ms, bound_by = attention_bound_ms(b, n, d, torch.bfloat16)
-    print(f"({b},{n},{d}) bf16: kernel {k1_ms:.4f} ms (with the logsumexp "
-          f"write {k1_lse_ms:.4f} ms), plain {plain_ms:.4f} ms, flash sdpa "
-          f"{sdpa_ms:.4f} ms (max_abs_err vs plain "
-          f"{sdpa_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}); kernel at "
-          f"{100 * bound_ms / k1_ms:.1f}% of the bound", flush=True)
+            sdpa_err = (sdpa.float() - nonlocal_attention_reference(
+                t, p, g).float()).abs().max().item()
+        k1_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
+        bound_ms, bound_by = attention_bound_ms(b, n, d, torch.bfloat16)
+        timed[(b, n, d)] = (k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by)
+        tflops = 4.0 * b * n * n * d / k1_ms / 1e9
+        print(f"({b},{n},{d}) bf16{' with the logsumexp' if with_lse else ''}"
+              f": kernel {k1_ms:.4f} ms ({tflops:.0f} TFLOP/s, "
+              f"{100 * bound_ms / k1_ms:.1f}% of the bound {bound_ms:.4f} ms,"
+              f" {bound_by}), plain {plain_ms:.4f} ms, flash sdpa "
+              f"{sdpa_ms:.4f} ms (max_abs_err vs plain {sdpa_err:.3e}); "
+              f"kernel / flash {k1_ms / sdpa_ms:.2f} (medians; by turn "
+              f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
+              f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])})",
+              flush=True)
+    k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by = timed[K1_TIMED[0][0]]
 
     phase("4 golden forward at 256 px (TF-reference e2e_eval.npz)")
     golden = np.load(GOLDEN)
@@ -493,6 +544,10 @@ def main() -> int:
           f"%, profiler on)")
     for key, ms, count in kernels[:12]:
         print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<3d} {key[:100]}")
+    k1_prof = [(ms, count) for key, ms, count in kernels if "attn_fwd" in key]
+    print(f"K1 in the profiled forward: {sum(ms for ms, _ in k1_prof):.3f} ms "
+          f"({100 * sum(ms for ms, _ in k1_prof) / busy_ms:.1f}% of the "
+          f"kernels), {sum(c for _, c in k1_prof)} launches")
     by_block: dict[str, float] = {}
     for e in events:
         if e.key.startswith("block:"):
@@ -550,6 +605,31 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_ptxas_faults(log: str) -> list[str]:
+    """Prints every line of ptxas's report on K1's library that mentions
+    wgmma, and returns the faults in it: wgmma serialised, or spills in a
+    bf16 kernel (either makes the kernel right and slow).  Raises when the
+    report does not cover both bf16 kernels."""
+    faults, seen, current = [], set(), ""
+    for line in log.splitlines():
+        if "wgmma" in line:
+            print(line.strip())
+            if "serialized" in line:
+                faults.append(line.strip())
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif "spill" in line and "attn_fwd_bf16" in current:
+            seen.add(current)
+            if any(int(v) for v in re.findall(r"(\d+) bytes spill", line)):
+                faults.append(f"{current}: {line.strip()}")
+    if len(seen) != len(SUPPORTED_D):
+        raise SystemExit(f"ptxas reported on {len(seen)} bf16 K1 kernels, "
+                         f"expected {len(SUPPORTED_D)}")
+    print(f"ptxas: {len(seen)} bf16 K1 kernels, "
+          f"{'no wgmma serialisation, no spills' if not faults else 'FAULTS'}")
+    return faults
 
 
 def _excess(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:

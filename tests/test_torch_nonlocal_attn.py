@@ -85,25 +85,30 @@ def test_cpu_wrapper_is_the_plain_version(rng):
                                rtol=0, atol=0)
 
 
-def _emulate_kernel(t, p, g, p_dtype=torch.bfloat16, rescale=1.0):
+# keys per tile of the bf16 kernel by head width (csrc/nonlocal_attn.cu,
+# Tiles<D>::kBlockN)
+KEY_TILE = {128: 128, 256: 64}
+
+
+def _emulate_kernel(t, p, g, tile, p_dtype=torch.bfloat16, rescale=1.0):
     """The bf16 kernel's numerics (csrc/nonlocal_attn.cu) in plain PyTorch:
-    64-key tiles, an online softmax in f32, exp(s - running max) rounded to
-    `p_dtype` as the operand of the second product, the row sum taken over
-    the unrounded values, one divide at the end.  `rescale` multiplies the
-    fourth tile's rescale factor, to model a broken kernel."""
+    `tile`-key tiles, an online softmax in f32, exp(s - running max)
+    rounded to `p_dtype` as the operand of the second product, the row sum
+    taken over the unrounded values, one divide at the end.  `rescale`
+    multiplies the fourth tile's rescale factor, to model a broken kernel."""
     s = torch.matmul(t.float(), p.float().transpose(1, 2))
     b, n, d = g.shape
     m = torch.full((b, n, 1), -float("inf"))
     total = torch.zeros(b, n, 1)
     acc = torch.zeros(b, n, d)
-    for i, n0 in enumerate(range(0, n, 64)):
-        tile = s[..., n0:n0 + 64]
-        mx = torch.maximum(m, tile.amax(-1, keepdim=True))
+    for i, n0 in enumerate(range(0, n, tile)):
+        block = s[..., n0:n0 + tile]
+        mx = torch.maximum(m, block.amax(-1, keepdim=True))
         alpha = torch.exp(m - mx) * (rescale if i == 3 else 1.0)
-        e = torch.exp(tile - mx)
+        e = torch.exp(block - mx)
         total = total * alpha + e.sum(-1, keepdim=True)
         acc = acc * alpha + torch.matmul(e.to(p_dtype).float(),
-                                         g[:, n0:n0 + 64].float())
+                                         g[:, n0:n0 + tile].float())
         m = mx
     return (acc / total).to(torch.bfloat16).float()
 
@@ -122,10 +127,11 @@ def _bf16_ops(b, n, d):
                                    (4, 1024, 256)])
 def test_kernel_tolerance_admits_the_kernels_numerics(b, n, d):
     # the bound that chip_smoke.py and the card tests hold the kernel to
-    # must admit the kernel's own rounding at the main path's widths
+    # must admit the kernel's own rounding at the main path's widths, with
+    # the key tiles the kernel takes at each head width
     t, p, g = _bf16_ops(b, n, d)
     ref = nonlocal_attention_reference(t, p, g).float()
-    assert _within_kernel_tolerance(_emulate_kernel(t, p, g), ref)
+    assert _within_kernel_tolerance(_emulate_kernel(t, p, g, KEY_TILE[d]), ref)
 
 
 @pytest.mark.parametrize("p_dtype,rescale", [
@@ -135,7 +141,7 @@ def test_kernel_tolerance_admits_the_kernels_numerics(b, n, d):
 def test_kernel_tolerance_rejects_broken_numerics(p_dtype, rescale):
     t, p, g = _bf16_ops(8, 1024, 128)
     ref = nonlocal_attention_reference(t, p, g).float()
-    out = _emulate_kernel(t, p, g, p_dtype, rescale)
+    out = _emulate_kernel(t, p, g, KEY_TILE[128], p_dtype, rescale)
     assert not _within_kernel_tolerance(out, ref)
 
 
@@ -244,6 +250,16 @@ def test_bwd_tolerance_admits_the_kernels_numerics(b, n, d):
     t, p, g, do = _bwd_case(b, n, d)
     ref = nonlocal_attention_bwd_reference(t, p, g, do)
     assert _within_bwd_tolerance(_emulate_bwd(t, p, g, do), ref)
+
+
+def test_bwd_tolerance_stops_short_of_short_n():
+    # the scope of KERNEL_BWD_TOLERANCE: at N=64 the gradients reach ~2.3
+    # and K2's own rounding of P and dS, with the exact forward output,
+    # already lies outside it, so the card tests leave (300, 64, 128) out
+    # of their K2 cases
+    t, p, g, do = _bwd_case(300, 64, 128)
+    ref = nonlocal_attention_bwd_reference(t, p, g, do)
+    assert not _within_bwd_tolerance(_emulate_bwd(t, p, g, do), ref)
 
 
 @pytest.mark.parametrize("p_dtype,delta_scale", [

@@ -5,6 +5,7 @@ requests make one full batch and one padded tail."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from blindshadowremoval_tpu.config import get_config as jax_config
 from blindshadowremoval_tpu.eval.serving import (
@@ -90,3 +91,25 @@ def test_service_raises_when_batch_overflows(variables):
         from_jax_variables(variables), batch_size=2, device="cpu")
     with pytest.raises(ValueError, match="exceeds batch_size"):
         svc.stage([{}] * 3)
+
+
+@pytest.mark.parametrize("device_geometry", [True, False])
+def test_bf16_egress_arrives_bf16_exact(variables, requests, device_geometry):
+    # numpy has no bf16: the port hands a bf16 egress to the host as f32
+    # arrays that hold bf16 values (the JAX service returns ml_dtypes bf16
+    # arrays); every pred value must survive a round trip through bf16.
+    # mask_pred is the bf16 map times the f32 face map, promoted to f32 in
+    # both packages.
+    images, lms = requests
+    svc = ShadowRemovalService(
+        get_config(img_size=S, compute_dtype="bfloat16", fold_bn=True,
+                   egress_dtype="bfloat16", n_res=N_RES,
+                   device_geometry=device_geometry),
+        from_jax_variables(variables), batch_size=2, device="cpu")
+    out = svc.remove_shadows(images, lms)
+    assert len(out) == 3
+    for r in out:
+        pred = torch.from_numpy(r["pred"])
+        assert pred.dtype == torch.float32 and pred.shape == (S, S, 3)
+        assert torch.equal(pred, pred.to(torch.bfloat16).float())
+        assert r["mask_pred"].dtype == np.float32
