@@ -3,10 +3,11 @@
 // multiply (wgmma) with 128-byte-swizzled shared-memory operands.
 //
 // Layout shared by the TMA maps and the wgmma descriptors: a bf16 tile is
-// cut into panels of 64 columns (128 bytes a row); a panel's rows lie 128
-// bytes apart, and inside each 1024-byte group of 8 rows the 16-byte chunk
-// c of row r sits at chunk c ^ (r % 8) (CU_TENSOR_MAP_SWIZZLE_128B).  Every
-// panel starts on a 1024-byte boundary.
+// cut into panels of 64 columns (128 bytes a row; an f32 tile into panels
+// of 32); a panel's rows lie 128 bytes apart, and inside each 1024-byte
+// group of 8 rows the 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+// (CU_TENSOR_MAP_SWIZZLE_128B).  Every panel starts on a 1024-byte
+// boundary.
 
 #pragma once
 
@@ -88,9 +89,42 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store_commit_and_wait() {
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory; completion counts them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// adds a box of f32 from shared memory into the tensor at coordinates
+// (c0, c1, c2), element by element, in L2; elements outside the tensor are
+// not touched.  Completion as a bulk group of the issuing thread.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// returns once at most `kPending` of this thread's committed bulk groups
+// still read shared memory
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kPending)
+               : "memory");
 }
 
 // orders this thread's shared-memory writes before later async-proxy
@@ -171,7 +205,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // for each 8-column block j, d[4j+0..1] = D[16w+grp][8j+2tig..+1] and
 // d[4j+2..3] = D[16w+grp+8][8j+2tig..+1].
 
-// d[64x64] (+)= A[64x16] . B[16x64], both from shared memory, K-major
+// The ss forms below take A[64x16] and B[16xN] from shared memory.  An
+// operand is K-major by default (rows of 128 bytes along the reduction);
+// kTransA / kTransB = 1 makes it MN-major instead (rows of 128 bytes along
+// M or N, one row per reduction index), transposed by the descriptor.
+
+// d[64x32] (+)= A[64x16] . B[16x32], both K-major
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : BSR_ACC8(0), BSR_ACC8(8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64x64] (+)= A[64x16] . B[16x64]
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,
                                                    uint64_t b, int accumulate) {
   asm volatile(
@@ -181,13 +236,14 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : BSR_ACC8(0), BSR_ACC8(8), BSR_ACC8(16), BSR_ACC8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// d[64x128] (+)= A[64x16] . B[16x128], both from shared memory, K-major
+// d[64x128] (+)= A[64x16] . B[16x128]
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a,
                                                     uint64_t b, int accumulate) {
   asm volatile(
@@ -199,11 +255,11 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : BSR_ACC8(0), BSR_ACC8(8), BSR_ACC8(16), BSR_ACC8(24), BSR_ACC8(32),
         BSR_ACC8(40), BSR_ACC8(48), BSR_ACC8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d[64x128] (+)= A[64x16] . B[16x128]: A from registers (bf16 pairs, the
@@ -230,5 +286,53 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
 }
 
 #undef BSR_ACC8
+
+// ------------------------------------------------------ tensor maps (host)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found at run time (no link against
+// libcuda); null when the driver lacks it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// 3-D map over a [batch, n, d] bf16 tensor (f32 when `f32`), boxes of one
+// 128-byte swizzled panel (64 bf16 or 32 f32 columns) x `rows`; rows past n
+// read as zero and are not written
+inline bool encode_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
+                       int batch, int n, int d, int rows, bool f32 = false) {
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * es, (cuuint64_t)n * d * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / es), (cuuint32_t)rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace bsr

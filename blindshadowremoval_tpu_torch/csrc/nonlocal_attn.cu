@@ -348,7 +348,8 @@ __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk,
       bsr::tma_store_3d(o_map, so + pn * T::kQPanel, pn * kPanelCols,
                         m0 + cw * 64, blockIdx.y);
     }
-    bsr::tma_store_commit_and_wait();
+    bsr::bulk_commit();
+    bsr::bulk_wait_read<0>();
   }
 }
 
@@ -420,63 +421,25 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found at run time
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// 3-D map over a [batch, n, d] bf16 tensor, boxes of 64 columns x `rows`
-bool encode_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
-                int batch, int n, int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanelCols, (cuuint32_t)rows, 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int batch, int n, cudaStream_t stream) {
   using T = Tiles<D>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  CUtensorMap qm, km, vm, om;
-  if (!encode_map(&qm, encode, q, batch, n, D, kBlockM) ||
-      !encode_map(&km, encode, k, batch, n, D, T::kBlockN) ||
-      !encode_map(&vm, encode, v, batch, n, D, T::kBlockN) ||
-      !encode_map(&om, encode, o, batch, n, D, 64)) {
-    return cudaErrorInvalidValue;
-  }
+  // first, since it binds the device's context to this thread, which the
+  // encoder needs: a call can come from a thread that has none (the
+  // autograd engine's, recomputing a checkpointed forward)
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
+  bsr::EncodeTiled encode = bsr::encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap qm, km, vm, om;
+  if (!bsr::encode_map(&qm, encode, q, batch, n, D, kBlockM) ||
+      !bsr::encode_map(&km, encode, k, batch, n, D, T::kBlockN) ||
+      !bsr::encode_map(&vm, encode, v, batch, n, D, T::kBlockN) ||
+      !bsr::encode_map(&om, encode, o, batch, n, D, 64)) {
+    return cudaErrorInvalidValue;
+  }
   const dim3 grid((n + kBlockM - 1) / kBlockM, batch);
   attn_fwd_bf16<D><<<grid, kThreads, T::kSmem, stream>>>(qm, km, vm, om, lse,
                                                          n);

@@ -10,34 +10,68 @@
 //   dQ = dS K,    dK = dS^T Q,  Delta = rowsum(dP o P) = rowsum(dO o O).
 //
 // What bounds it on the card: at the train shape (B=64, N=1024, D=128,
-// bf16) pass 1 and pass 2 do five N x N x D products per batch element
-// between them (S is computed in both), 10*B*N^2*D = 85.9 GFLOP: ~87 us at
-// 989 TFLOP/s dense bf16.  It reads theta, phi, g, O and dO and writes three
-// gradients, 8*B*N*D*2 B = 134 MB (117 MB without O), ~40 us at 3.35 TB/s:
-// it is bounded by the tensor cores.
+// bf16) the gradients need five N x N x D products per batch element (S,
+// dP, dV, dK, dQ), 10*B*N^2*D = 85.9 GFLOP: ~87 us at 989 TFLOP/s dense
+// bf16.  It reads theta, phi, g, O and dO and writes three gradients,
+// 8*B*N*D*2 B = 134 MB, ~40 us at 3.35 TB/s: it is bounded by the tensor
+// cores, and only wgmma fed without stalls reaches their rate.
 //
-// What the design does about it (FlashAttention-2's backward):
+// What the design does about it (FlashAttention-3's backward, fitted to
+// this op), bf16:
 //  * The TPU kernel holds the N x N weights of one batch element in VMEM;
 //    a Hopper block gets at most 227 KB of shared memory.  So the forward
-//    kernel saves each row's logsumexp, and this kernel recomputes
-//    P = exp(S - lse) tile by tile; a small first kernel computes
-//    Delta = rowsum(dO o O) from the forward output, so no N x N tensor
-//    ever reaches device memory.
-//  * Pass 1: one block owns 64 key rows of one batch element (16 per warp)
-//    and walks the query tiles, accumulating dK and dV in registers.
-//    Pass 2: one block owns 64 query rows and walks the key tiles,
-//    accumulating dQ.  Each gradient row has one owner, so there are no
-//    atomics and the result is the same from run to run.
-//  * bf16: every product runs on the tensor cores through mma.sync m16n8k16
-//    (bf16 in, f32 accumulate).  S and dP stay in registers; P and dS are
-//    re-packed in registers as the A operand of the next product.  At
-//    D = 256 the output columns are split over two blocks (grid z), each
-//    recomputing S and dP, so the accumulators fit in registers.
+//    kernel saves each row's logsumexp and this kernel recomputes
+//    P = exp(S - lse) tile by tile: no N x N tensor reaches device memory.
+//  * One pass, five products (a dK/dV pass and a dQ pass would compute S
+//    and dP twice: seven).  A block owns a tile of keys of one batch
+//    element and walks the query tiles, 64 queries a step, accumulating dK
+//    and dV in registers.  Each step: S^T = K Q^T and dP^T = V dO^T by wgmma with
+//    both operands in shared memory (K-major); P^T and
+//    dS^T = P^T o (dP^T - Delta) in registers; dV += P^T dO and
+//    dK += dS^T Q by wgmma (dO and Q MN-major, transposed by the
+//    descriptor); dS^T to shared memory, and dQ = dS K by wgmma with both
+//    operands MN-major.  dQ's partial sums from the key tiles are added
+//    into an f32 [B, N, D] workspace.
+//  * D = 128: 128 keys a block, 64 for each of two consumer warpgroups,
+//    P^T and dS^T go from registers into the dV and dK products; each
+//    consumer takes 64 of dQ's 128 columns over the block's 128 keys and
+//    stages them in shared memory, and one thread adds them into the
+//    workspace with a TMA reduce (cp.reduce.async.bulk.tensor add), which
+//    measured faster than per-thread vector atomics.  The consumers issue
+//    their wgmma groups in turns (FlashAttention-3's ping-pong): S^T and
+//    dP^T of tile t, then dV and dK of tile t with dQ of tile t-1, so the
+//    tensor cores run one consumer's products while the other computes
+//    its P^T and dS^T; dS^T keeps three buffers, since a consumer may
+//    write a tile's while the other's dQ still reads the one before.
+//    dQ is issued at every step, which keeps ptxas from serialising the
+//    wgmma for want of registers (at the first step on a zeroed buffer,
+//    whose zeros are not added into the workspace).
+//  * D = 256: dK and dV of 64 keys x 256 columns in f32 do not fit one
+//    warpgroup's registers, so a block owns 64 keys and the two consumers
+//    split the columns: consumer c computes S^T and dP^T for queries
+//    32c..32c+31 of the tile, both write their P^T and dS^T to shared
+//    memory, and consumer c accumulates dK, dV and dQ for columns
+//    128c..128c+127 from there.  Shared memory has no room left for a
+//    dQ buffer, but after the step's products only consumer c reads its
+//    column panels of the Q and dO tiles: its dQ is staged there and added
+//    by TMA reduce, and the stage goes back to the producer a step later.
+//  * Warp specialisation, 3 warpgroups.  Warpgroup 0 is the producer: one
+//    thread issues TMA loads of the block's K and V once, then streams the
+//    Q and dO tiles (3-D tensor maps, 128-byte swizzle) and the tile's lse
+//    and Delta (bulk copies) into a 2-stage ring with full and empty
+//    mbarriers; setmaxnreg gives its registers to the consumers (24 / 240).
+//  * A first small kernel computes Delta = rowsum(dO o O) from the bf16
+//    forward output, copies lse padded to whole query tiles (+inf past N,
+//    so the missing queries get P = 0), and zeroes dQ's workspace; a last
+//    one rounds dQ to bf16.  Keys past N score -inf (P = 0), and dK and dV
+//    go out through shared memory with 3-D TMA stores, which clip at row N.
+//  * Determinism: dQ's partial sums from the key tiles arrive in no fixed
+//    order, so dtheta can differ from run to run within the f32 rounding
+//    of its sums, before its bf16 rounding; dphi and dg are the same from
+//    run to run.
 //  * f32: CUDA cores in full f32 (no TF32), for strict parity; not on the
 //    train path.
-//  * A ragged tail of N is masked: missing queries get lse = +inf (P = 0),
-//    missing keys score -inf; rows past N are computed on zeros, not stored.
-//  Not yet: wgmma, TMA, cp.async double buffering, warp specialisation.
+//  No trap anywhere in the file: a trap makes ptxas ignore setmaxnreg.
 //
 // Numerics: the TPU kernel keeps W, dW and dS in f32.  Here P and dS are
 // rounded to bf16 as operands of the second products, and Delta comes from
@@ -45,347 +79,736 @@
 // how far that moves the gradients.
 //
 // C interface (loaded with ctypes): bsr_nonlocal_attn_bwd returns a
-// cudaError_t value, 0 on success; the launches run on `stream`.
+// cudaError_t value, 0 on success; the launches run on `stream`.  Its
+// `workspace` holds bsr_nonlocal_attn_bwd_workspace floats.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// ---------------------------------------------------------------- bf16 path
-constexpr int kThreads = 128;   // 4 warps, 16 owned rows each
-constexpr int kRows = 64;       // rows a block owns
-constexpr int kPad = 8;         // row padding in elements (16 B)
-constexpr int kDH = 128;        // gradient columns per block
-constexpr int kQStep = 32;      // query rows per step of pass 1
-constexpr int kKStep = 64;      // key rows per step of pass 2
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.
-// Fragment layout (lane = 4*grp + tig):
-//   a[0] = A[grp][2tig..+1]   a[1] = A[grp+8][2tig..+1]
-//   a[2] = A[grp][2tig+8..+9] a[3] = A[grp+8][2tig+8..+9]
-//   b[0] = B[2tig..+1][grp]   b[1] = B[2tig+8..+9][grp]
-//   c[0..1] = C[grp][2tig..+1] c[2..3] = C[grp+8][2tig..+1]
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ------------------------------------------------------ bf16: the kernel
+namespace hop {
 
-// A fragment of rows [r0, r0+16) x columns [c0, c0+16) of a shared tile
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int ld,
-                                       int r0, int c0, int grp, int tig) {
-  const bf16* p = s + (r0 + grp) * ld + c0 + tig * 2;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
-}
+constexpr int kQ = 64;                  // queries per step
+constexpr int kStages = 2;              // depth of the Q/dO ring
+constexpr int kThreads = 384;           // producer + 2 consumer warpgroups
+constexpr int kProducerRegs = 24;       // setmaxnreg: 128 * 24 + 256 * 240
+constexpr int kConsumerRegs = 240;      // <= 65536
+constexpr int kQPanel = kQ * 128;       // bytes of a 64-column panel of a
+                                        // Q or dO tile (or 32 f32 columns)
+// named barriers: kTurn + cw for consumer cw's turn to issue wgmma (D =
+// 128); both consumers' shared tiles of the step written (D = 256); both
+// consumers done with K and V (before the epilogue overwrites them);
+// kStore + cw inside consumer cw
+constexpr uint32_t kTurn = 1, kReady = 3, kDone = 4, kStore = 5;
+constexpr float kLog2e = 1.4426950408889634f;
+// D = 128: dS^T of a tile is read by both consumers' dQ products during
+// the next tile's turns, so a consumer may write a tile's dS^T while the
+// other still reads the one before: three buffers
+constexpr int kDSBuffers = 3;
 
-// B fragment of B = T^T for a shared tile T: B[k][n] = T[n0+n][k0+k]
-__device__ __forceinline__ void frag_bt(uint32_t* b, const bf16* s, int ld,
-                                        int n0, int k0, int grp, int tig) {
-  const bf16* p = s + (n0 + grp) * ld + k0 + tig * 2;
-  b[0] = ld_u32(p);
-  b[1] = ld_u32(p + 8);
-}
+struct Barriers {
+  uint64_t kv_full;
+  uint64_t full[kStages];    // Q, dO, lse and Delta of one query tile
+  uint64_t empty[kStages];   // two arrivals: one per consumer
+};
 
-// B fragment of B = T for a shared tile T: B[k][n] = T[k0+k][n0+n]
-__device__ __forceinline__ void frag_b(uint32_t* b, const bf16* s, int ld,
-                                       int k0, int n0, int grp, int tig) {
-  const bf16* p = s + (k0 + tig * 2) * ld + n0 + grp;
-  b[0] = pack_bf16(p[0], p[ld]);
-  b[1] = pack_bf16(p[8 * ld], p[9 * ld]);
-}
-
-// rows [row0, row0+ROWS) of a [n, D] matrix into shared memory with row
-// stride D + kPad, 16 B per load; rows past n are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int n) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + col) = val;
-  }
-}
-
-// store the [16 x kDH] accumulator of a warp's rows r (grp) and r+8
+// Tiles by head width.  Shared memory: K, V | Q ring | dO ring | the
+// per-width tiles | lse, Delta ring | barriers, and slack to align the
+// tiles to 1024 bytes.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (*acc)[4],
-                                           int row, int c0, int n, int tig) {
+struct Cfg {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kKeys = D == 128 ? 128 : 64;   // keys per block
+  static constexpr int kKVPanel = kKeys * 128;
+  static constexpr int kKVBytes = kPanels * kKVPanel;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  // a bf16 P^T or dS^T tile: kKeys x 64 queries
+  static constexpr int kTile = kKeys * 128;
+  // D = 128: dS^T, kDSBuffers buffers; dQ of both consumers (64 queries x
+  // 64 f32 columns each, two panels).  D = 256: P^T and dS^T, two buffers
+  // each.
+  static constexpr int kExtra =
+      D == 128 ? kDSBuffers * kTile + 2 * 2 * kQPanel : 2 * 2 * kTile;
+  static constexpr int kSmem = 2 * kKVBytes + 2 * kStages * kQBytes +
+                               kExtra + 2 * kStages * kQ * (int)sizeof(float) +
+                               (int)sizeof(Barriers) + 1024;
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S^T (or dP^T) [64 keys x N queries] = 64 rows of K (V) . N rows of Q (dO)
+// ^T over D, both K-major; issued, not waited for
+template <int D, int N>
+__device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t a,
+                                             uint32_t b) {
 #pragma unroll
-  for (int t = 0; t < kDH / 8; ++t) {
-    const int col = c0 + t * 8 + tig * 2;
-    if (row < n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + col) =
-          __floats2bfloat162_rn(acc[t][0], acc[t][1]);
-    }
-    if (row + 8 < n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(row + 8) * D + col) =
-          __floats2bfloat162_rn(acc[t][2], acc[t][3]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // a 16-column step: 32 bytes along the swizzled row, panel by panel
+    const uint64_t da = bsr::desc_sw128(
+        a + (kk / 4) * Cfg<D>::kKVPanel + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = bsr::desc_sw128(
+        b + (kk / 4) * kQPanel + (kk % 4) * 32, 16, 1024);
+    if constexpr (N == 64) {
+      bsr::wgmma_ss_m64n64k16(s, da, db, kk > 0);
+    } else {
+      bsr::wgmma_ss_m64n32k16(s, da, db, kk > 0);
     }
   }
 }
 
-// Pass 1: dK and dV of 64 key rows, over every query.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int n) {
-  constexpr int LD = D + kPad;
-  constexpr int kST = kQStep / 8;   // n8 tiles of S^T per warp
-  constexpr int kOut = kDH / 8;     // n8 tiles of a gradient row block
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kRows * LD;
-  bf16* sq = sv + kRows * LD;
-  bf16* sdo = sq + kQStep * LD;
-  float* slse = reinterpret_cast<float*>(sdo + kQStep * LD);
-  float* sdelta = slse + kQStep;
+// acc[64 keys x 128] += A[64 keys x 64 queries] . B[64 queries x 128], B
+// MN-major (128 columns of dO or Q as loaded), A from registers (D = 128)
+// or K-major from shared memory (D = 256); issued, not waited for
+__device__ __forceinline__ void issue_grad(float (&acc)[64],
+                                           uint32_t (&a)[kQ / 16][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk) {
+    // 16 queries = 16 rows of 128 bytes in both panels
+    const uint64_t db = bsr::desc_sw128(b + kk * 2048, kQPanel, 1024);
+    bsr::wgmma_rs_m64n128k16_tb(acc, a[kk], db, 1);
+  }
+}
 
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
-  const int j0 = blockIdx.x * kRows;
-  const int c0 = blockIdx.z * kDH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+__device__ __forceinline__ void issue_grad(float (&acc)[64], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk) {
+    const uint64_t da = bsr::desc_sw128(a + kk * 32, 16, 1024);
+    const uint64_t db = bsr::desc_sw128(b + kk * 2048, kQPanel, 1024);
+    bsr::wgmma_ss_m64n128k16<0, 1>(acc, da, db, 1);
+  }
+}
+
+// dQ[64 queries x D/2 columns] = dS[64 queries x kKeys] . K[kKeys x D/2]:
+// A is dS^T as stored (one row of 64 queries per key), B D/128 panels of K
+// from `k`; both MN-major.  Issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 4], uint32_t ds,
+                                         uint32_t k) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::kKeys / 16; ++kk) {
+    const uint64_t da = bsr::desc_sw128(ds + kk * 2048, C::kTile, 1024);
+    const uint64_t db = bsr::desc_sw128(k + kk * 2048, C::kKVPanel, 1024);
+    if constexpr (D == 128) {
+      bsr::wgmma_ss_m64n64k16<1, 1>(dq, da, db, kk > 0);
+    } else {
+      bsr::wgmma_ss_m64n128k16<1, 1>(dq, da, db, kk > 0);
+    }
+  }
+}
+
+// P^T = exp(S^T - lse) (0 for a key past n) and dS^T = P^T o (dP^T - Delta)
+// over one 8-query block of the score accumulators (s and dp point at its
+// 4 values: rows r0 and r0 + 8, queries 2tig and 2tig + 1, whose lse and
+// Delta are lq and dq), as bf16 pairs {P row r0, P row r0 + 8, dS row r0,
+// dS row r0 + 8}
+__device__ __forceinline__ uint4 p_and_ds(const float* s, const float* dp,
+                                          float2 lq, float2 dq, bool live0,
+                                          bool live1) {
+  const float m0 = lq.x * kLog2e, m1 = lq.y * kLog2e;
+  const float p0 = live0 ? fast_exp2(fmaf(s[0], kLog2e, -m0)) : 0.f;
+  const float p1 = live0 ? fast_exp2(fmaf(s[1], kLog2e, -m1)) : 0.f;
+  const float p2 = live1 ? fast_exp2(fmaf(s[2], kLog2e, -m0)) : 0.f;
+  const float p3 = live1 ? fast_exp2(fmaf(s[3], kLog2e, -m1)) : 0.f;
+  return make_uint4(pack_f32(p0, p1), pack_f32(p2, p3),
+                    pack_f32(p0 * (dp[0] - dq.x), p1 * (dp[1] - dq.y)),
+                    pack_f32(p2 * (dp[2] - dq.x), p3 * (dp[3] - dq.y)));
+}
+
+// the 64 x kCols accumulators dK and dV, this thread's rows as bf16 into
+// K's and V's tiles, from panel p0 on, rows row0 and row0 + 8, in the
+// swizzled layout the store maps read
+template <int kCols>
+__device__ __forceinline__ void stage_rows(unsigned char* sk,
+                                           unsigned char* sv,
+                                           const float (&dk)[kCols / 2],
+                                           const float (&dv)[kCols / 2],
+                                           int kv_panel, int p0, int row0,
+                                           int grp, int tig) {
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // (row0 & 7) == grp: chunk c of both rows sits at chunk c ^ grp
+      const int off = (p0 + j / 8) * kv_panel + (row0 + 8 * h) * 128 +
+                      (((j % 8) ^ grp) * 16) + tig * 4;
+      *reinterpret_cast<uint32_t*>(sk + off) =
+          pack_f32(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(sv + off) =
+          pack_f32(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// The pointers of one block's shared memory.
+struct Smem {
+  unsigned char* k;       // [panel][kKeys][128 B]
+  unsigned char* v;
+  unsigned char* q;       // [stage][panel][64][128 B]
+  unsigned char* dout;
+  unsigned char* extra;   // Cfg::kExtra
+  float* lse;             // [stage][64]
+  float* delta;
+  Barriers* bars;
+};
+
+// D = 128, consumer cw = 0, 1: dK and dV of its 64 of the block's 128 keys
+// over every query tile, and 64 columns of dQ's partial sums over the
+// block's keys, added into the workspace by TMA.
+__device__ __forceinline__ void consume128(const Smem& sm,
+                                           const CUtensorMap* dk_map,
+                                           const CUtensorMap* dv_map,
+                                           const CUtensorMap* dq_map, int n,
+                                           int j0, int cw) {
+  using C = Cfg<128>;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  const int wr = warp * 16;
+  const int tiles = (n + kQ - 1) / kQ;
+  // rows r0 and r0 + 8 of this consumer's 64 keys (and of a dQ tile's 64
+  // queries); row0 and row0 + 8 of the block's 128 keys
+  const int r0 = warp * 16 + grp;
+  const int row0 = cw * 64 + r0;
+  const bool live0 = j0 + row0 < n;
+  const bool live1 = j0 + row0 + 8 < n;
+  const uint32_t k_rows = bsr::smem_addr(sm.k) + cw * 64 * 128;
+  const uint32_t v_rows = bsr::smem_addr(sm.v) + cw * 64 * 128;
+  const uint32_t k_cols = bsr::smem_addr(sm.k) + cw * C::kKVPanel;
+  unsigned char* sds = sm.extra;                 // [buffer][128 keys][128 B]
+  // this consumer's dQ buffer: [panel][64 queries][128 B]
+  unsigned char* dq_tile = sds + kDSBuffers * C::kTile + cw * 2 * kQPanel;
 
-  load_tile<D, kRows>(sk, k + base, j0, n);
-  load_tile<D, kRows>(sv, v + base, j0, n);
-
-  float acc_dk[kOut][4];
-  float acc_dv[kOut][4];
+  // this consumer's 64 columns of dQ of query tile `tile` into its
+  // buffer, in the swizzled layout of the f32 map, then one thread adds
+  // them into the f32 workspace (rows past n are clipped)
+  auto stage_dq = [&](const float (&dq)[32], int tile) {
 #pragma unroll
-  for (int t = 0; t < kOut; ++t) {
+    for (int j = 0; j < 8; ++j) {
+      // columns 8j + 2tig, +1: panel j / 4, 16-byte chunk 2 (j % 4) + tig / 2
+      const int chunk = 2 * (j % 4) + tig / 2;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[t][e] = acc_dv[t][e] = 0.f;
-  }
-
-  for (int i0 = 0; i0 < n; i0 += kQStep) {
-    __syncthreads();   // every warp is done with the previous query tile
-    load_tile<D, kQStep>(sq, q + base, i0, n);
-    load_tile<D, kQStep>(sdo, dout + base, i0, n);
-    if (threadIdx.x < kQStep) {
-      const int i = i0 + threadIdx.x;
-      slse[threadIdx.x] = i < n ? lse[rbase + i] : INFINITY;
-      sdelta[threadIdx.x] = i < n ? delta[rbase + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T[16 keys x 32 queries] = K_w Q^T and dP^T = V_w dO^T
-    float s[kST][4];
-    float dp[kST][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a(ak, sk, LD, wr, kk * 16, grp, tig);
-      frag_a(av, sv, LD, wr, kk * 16, grp, tig);
-#pragma unroll
-      for (int j = 0; j < kST; ++j) {
-        uint32_t b[2];
-        frag_bt(b, sq, LD, j * 8, kk * 16, grp, tig);
-        mma_16816(s[j], ak, b);
-        frag_bt(b, sdo, LD, j * 8, kk * 16, grp, tig);
-        mma_16816(dp[j], av, b);
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(dq_tile + (j / 4) * kQPanel +
+                                   (r0 + 8 * h) * 128 +
+                                   ((chunk ^ grp) * 16) + (tig & 1) * 8) =
+            make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
       }
     }
-
-    // P^T = exp(S^T - lse[query]), dS^T = P^T o (dP^T - Delta[query]), as
-    // bf16 A fragments: tiles 2kk and 2kk+1 hold queries 16kk..16kk+15
-    uint32_t pa[kQStep / 16][4];
-    uint32_t dsa[kQStep / 16][4];
+    bsr::fence_proxy_async();
+    bsr::named_barrier(kStore + cw, 128);
+    if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < kST; ++j) {
+      for (int pn = 0; pn < 2; ++pn) {
+        bsr::tma_reduce_add_3d(dq_map, dq_tile + pn * kQPanel,
+                               cw * 64 + pn * 32, tile * kQ, blockIdx.y);
+      }
+      bsr::bulk_commit();
+    }
+  };
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  // this consumer's rows of the last dS^T buffer zeroed, for the first
+  // step's dQ product
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    unsigned char* row = sds + (kDSBuffers - 1) * C::kTile + row0 * 128;
+    *reinterpret_cast<uint32_t*>(row + c * 16 + tig * 4) = 0u;
+    *reinterpret_cast<uint32_t*>(row + 8 * 128 + c * 16 + tig * 4) = 0u;
+  }
+  bsr::fence_proxy_async();
+  bsr::mbar_wait(&sm.bars->kv_full, 0);
+  // The two consumers issue their wgmma groups in turns (named barriers,
+  // consumer 0 first), so that the tensor cores run one consumer's
+  // products while the other computes P^T and dS^T.  Step t issues group A
+  // (S^T and dP^T of tile t) and group B (dV and dK of tile t, and dQ of
+  // tile t-1, whose dS^T both consumers wrote before their previous
+  // turn); a last group C adds dQ of the last tile.
+  if (cw == 1) bsr::named_barrier_arrive(kTurn, 256);
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t q = bsr::smem_addr(sm.q) + st * C::kQBytes;
+    const uint32_t o = bsr::smem_addr(sm.dout) + st * C::kQBytes;
+    unsigned char* ds_tile = sds + (t % kDSBuffers) * C::kTile;
+    // per step, so that only dK and dV stay live across steps; the first
+    // product of each sum overwrites its accumulator
+    float s[32], dp[32], dq[32];
+    uint32_t pa[kQ / 16][4], dsa[kQ / 16][4];
+    bsr::mbar_wait(&sm.bars->full[st], (t / kStages) & 1);
+    bsr::named_barrier(kTurn + cw, 256);
+    bsr::wgmma_fence();
+    issue_scores<128, 64>(s, k_rows, q);
+    issue_scores<128, 64>(dp, v_rows, o);
+    bsr::wgmma_commit();
+    bsr::named_barrier_arrive(kTurn + (cw ^ 1), 256);
+    bsr::wgmma_wait_all();
+    bsr::fence_regs(s);
+    bsr::fence_regs(dp);
+
+    // P^T and dS^T as bf16 A fragments (score blocks 2kk and 2kk+1 hold
+    // queries 16kk..16kk+15 in the A layout), and dS^T into shared memory
+    const float* l = sm.lse + st * kQ;
+    const float* dl = sm.delta + st * kQ;
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
       const int qc = j * 8 + tig * 2;
-      const float l0 = slse[qc], l1 = slse[qc + 1];
-      const float d0 = sdelta[qc], d1 = sdelta[qc + 1];
-      const float p0 = __expf(s[j][0] - l0), p1 = __expf(s[j][1] - l1);
-      const float p2 = __expf(s[j][2] - l0), p3 = __expf(s[j][3] - l1);
-      pa[j / 2][(j % 2) * 2 + 0] = pack_f32(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_f32(p2, p3);
-      dsa[j / 2][(j % 2) * 2 + 0] =
-          pack_f32(p0 * (dp[j][0] - d0), p1 * (dp[j][1] - d1));
-      dsa[j / 2][(j % 2) * 2 + 1] =
-          pack_f32(p2 * (dp[j][2] - d0), p3 * (dp[j][3] - d1));
+      const uint4 r = p_and_ds(s + 4 * j, dp + 4 * j,
+                               *reinterpret_cast<const float2*>(l + qc),
+                               *reinterpret_cast<const float2*>(dl + qc),
+                               live0, live1);
+      pa[j / 2][(j % 2) * 2 + 0] = r.x;
+      pa[j / 2][(j % 2) * 2 + 1] = r.y;
+      dsa[j / 2][(j % 2) * 2 + 0] = r.z;
+      dsa[j / 2][(j % 2) * 2 + 1] = r.w;
+      // (row0 & 7) == grp: chunk j of both rows sits at chunk j ^ grp
+      unsigned char* dst = ds_tile + row0 * 128 + ((j ^ grp) * 16) + tig * 4;
+      *reinterpret_cast<uint32_t*>(dst) = r.z;
+      *reinterpret_cast<uint32_t*>(dst + 8 * 128) = r.w;
     }
+    bsr::fence_proxy_async();   // the dS^T stores, before wgmma reads them
+    // the last reduction has read the dQ buffer (the turn below holds the
+    // other threads until it has)
+    if (tid == 0) bsr::bulk_wait_read<0>();
 
-    // dV += P^T dO, dK += dS^T Q over this tile's queries
+    // group B: dV += P^T dO, dK += dS^T Q, and dQ of the previous tile
 #pragma unroll
-    for (int kk = 0; kk < kQStep / 16; ++kk) {
-#pragma unroll
-      for (int t = 0; t < kOut; ++t) {
-        uint32_t b[2];
-        frag_b(b, sdo, LD, kk * 16, c0 + t * 8, grp, tig);
-        mma_16816(acc_dv[t], pa[kk], b);
-        frag_b(b, sq, LD, kk * 16, c0 + t * 8, grp, tig);
-        mma_16816(acc_dk[t], dsa[kk], b);
-      }
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      bsr::fence_regs(pa[kk]);
+      bsr::fence_regs(dsa[kk]);
     }
+    bsr::fence_regs(dk);
+    bsr::fence_regs(dv);
+    bsr::named_barrier(kTurn + cw, 256);
+    bsr::wgmma_fence();
+    issue_grad(dv, pa, o);
+    issue_grad(dk, dsa, q);
+    // at t = 0 on the zeroed last buffer, and its zeros are not staged:
+    // the product is issued at every step, which keeps ptxas from
+    // serialising
+    const int prev = (t + kDSBuffers - 1) % kDSBuffers;
+    issue_dq<128>(dq, bsr::smem_addr(sds + prev * C::kTile), k_cols);
+    bsr::wgmma_commit();
+    bsr::named_barrier_arrive(kTurn + (cw ^ 1), 256);
+    bsr::wgmma_wait_all();
+    bsr::fence_regs(dk);
+    bsr::fence_regs(dv);
+    bsr::fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      bsr::fence_regs(pa[kk]);
+      bsr::fence_regs(dsa[kk]);
+    }
+    if (tid == 0) bsr::mbar_arrive(&sm.bars->empty[st]);   // Q, dO read
+    if (t > 0) stage_dq(dq, t - 1);
+  }
+  {
+    // group C: dQ of the last tile; consumer 1 passes the turn to no one,
+    // so that every arrival meets a wait
+    float dq[32];
+    if (tid == 0) bsr::bulk_wait_read<0>();
+    bsr::named_barrier(kTurn + cw, 256);
+    bsr::wgmma_fence();
+    const int prev = (tiles - 1) % kDSBuffers;
+    issue_dq<128>(dq, bsr::smem_addr(sds + prev * C::kTile), k_cols);
+    bsr::wgmma_commit();
+    if (cw == 0) bsr::named_barrier_arrive(kTurn + 1, 256);
+    bsr::wgmma_wait_all();
+    bsr::fence_regs(dq);
+    stage_dq(dq, tiles - 1);
   }
 
-  const int row = j0 + wr + grp;
-  store_rows<D>(dk + base, acc_dk, row, c0, n, tig);
-  store_rows<D>(dv + base, acc_dv, row, c0, n, tig);
+  // epilogue: K is shared, so wait until the other consumer's dQ products
+  // are done with it, then dK and dV into this consumer's rows of the K and
+  // V tiles, and one thread stores them
+  bsr::named_barrier(kDone, 256);
+  stage_rows<128>(sm.k, sm.v, dk, dv, C::kKVPanel, 0, row0, grp, tig);
+  bsr::fence_proxy_async();
+  bsr::named_barrier(kStore + cw, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn) {
+      const int off = pn * C::kKVPanel + cw * 64 * 128;
+      bsr::tma_store_3d(dk_map, sm.k + off, pn * 64, j0 + cw * 64, blockIdx.y);
+      bsr::tma_store_3d(dv_map, sm.v + off, pn * 64, j0 + cw * 64, blockIdx.y);
+    }
+    bsr::bulk_commit();
+    bsr::bulk_wait_read<0>();
+  }
 }
 
-// Pass 2: dQ of 64 query rows, over every key.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            bf16* __restrict__ dq, int n) {
-  constexpr int LD = D + kPad;
-  constexpr int kST = kKStep / 8;   // n8 tiles of S per warp
-  constexpr int kOut = kDH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kRows * LD;
-  bf16* sk = sdo + kRows * LD;
-  bf16* sv = sk + kKStep * LD;
-
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
-  const int i0 = blockIdx.x * kRows;
-  const int c0 = blockIdx.z * kDH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// D = 256, consumer cw = 0, 1: S^T and dP^T of the block's 64 keys for
+// queries 32cw..32cw+31 of each tile; then, from both consumers' P^T and
+// dS^T in shared memory, dK, dV and dQ's partial sums of columns
+// 128cw..128cw+127.  After the step's products only this consumer reads
+// its panels 2cw, 2cw+1 of the Q and dO tiles, so its dQ is staged there
+// and added into the workspace by TMA; the stage goes back to the producer
+// once that has been read, a step later.
+__device__ __forceinline__ void consume256(const Smem& sm,
+                                           const CUtensorMap* dk_map,
+                                           const CUtensorMap* dv_map,
+                                           const CUtensorMap* dq_map, int n,
+                                           int j0, int cw) {
+  using C = Cfg<256>;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  const int wr = warp * 16;
-  const int row = i0 + wr + grp;
+  const int tiles = (n + kQ - 1) / kQ;
+  // rows r0 and r0 + 8 of the block's 64 keys (and of a dQ tile's queries)
+  const int r0 = warp * 16 + grp;
+  const bool live0 = j0 + r0 < n;
+  const bool live1 = j0 + r0 + 8 < n;
+  const uint32_t k0 = bsr::smem_addr(sm.k);
+  const uint32_t v0 = bsr::smem_addr(sm.v);
+  unsigned char* sp = sm.extra;               // [buffer][64 keys][128 B]
+  unsigned char* sds = sp + 2 * C::kTile;
 
-  load_tile<D, kRows>(sq, q + base, i0, n);
-  load_tile<D, kRows>(sdo, dout + base, i0, n);
-  // rows grp and grp+8 of the warp; rows past n are computed, not stored
-  const float l0 = row < n ? lse[rbase + row] : 0.f;
-  const float l1 = row + 8 < n ? lse[rbase + row + 8] : 0.f;
-  const float d0 = row < n ? delta[rbase + row] : 0.f;
-  const float d1 = row + 8 < n ? delta[rbase + row + 8] : 0.f;
-
-  float acc[kOut][4];
+  float dk[64], dv[64];
 #pragma unroll
-  for (int t = 0; t < kOut; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
-  for (int j0 = 0; j0 < n; j0 += kKStep) {
-    __syncthreads();
-    load_tile<D, kKStep>(sk, k + base, j0, n);
-    load_tile<D, kKStep>(sv, v + base, j0, n);
-    __syncthreads();
-
-    // S[16 queries x 64 keys] = Q_w K^T and dP = dO_w V^T
-    float s[kST][4];
-    float dp[kST][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  bsr::mbar_wait(&sm.bars->kv_full, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t q = bsr::smem_addr(sm.q) + st * C::kQBytes;
+    const uint32_t o = bsr::smem_addr(sm.dout) + st * C::kQBytes;
+    unsigned char* p_tile = sp + (t % 2) * C::kTile;
+    unsigned char* ds_tile = sds + (t % 2) * C::kTile;
+    bsr::mbar_wait(&sm.bars->full[st], (t / kStages) & 1);
+    float s[16], dp[16], dq[64];
+    bsr::wgmma_fence();
+    issue_scores<256, 32>(s, k0, q + cw * 32 * 128);
+    issue_scores<256, 32>(dp, v0, o + cw * 32 * 128);
+    bsr::wgmma_commit();
+    if (tid == 0 && t > 0) {   // last step's dQ is read: hand its stage back
+      bsr::bulk_wait_read<0>();
+      bsr::mbar_arrive(&sm.bars->empty[(t - 1) % kStages]);
     }
-#pragma unroll 2
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a(aq, sq, LD, wr, kk * 16, grp, tig);
-      frag_a(ao, sdo, LD, wr, kk * 16, grp, tig);
+    bsr::wgmma_wait_all();
+    bsr::fence_regs(s);
+    bsr::fence_regs(dp);
+
+    // this consumer's 32 queries of P^T and dS^T into shared memory:
+    // 16-byte chunks 4cw..4cw+3 of rows r0 and r0 + 8
+    const float* l = sm.lse + st * kQ + cw * 32;
+    const float* dl = sm.delta + st * kQ + cw * 32;
 #pragma unroll
-      for (int j = 0; j < kST; ++j) {
-        uint32_t b[2];
-        frag_bt(b, sk, LD, j * 8, kk * 16, grp, tig);
-        mma_16816(s[j], aq, b);
-        frag_bt(b, sv, LD, j * 8, kk * 16, grp, tig);
-        mma_16816(dp[j], ao, b);
+    for (int j = 0; j < 4; ++j) {
+      const int qc = j * 8 + tig * 2;
+      const uint4 r = p_and_ds(s + 4 * j, dp + 4 * j,
+                               *reinterpret_cast<const float2*>(l + qc),
+                               *reinterpret_cast<const float2*>(dl + qc),
+                               live0, live1);
+      const int off = r0 * 128 + (((4 * cw + j) ^ grp) * 16) + tig * 4;
+      *reinterpret_cast<uint32_t*>(p_tile + off) = r.x;
+      *reinterpret_cast<uint32_t*>(p_tile + off + 8 * 128) = r.y;
+      *reinterpret_cast<uint32_t*>(ds_tile + off) = r.z;
+      *reinterpret_cast<uint32_t*>(ds_tile + off + 8 * 128) = r.w;
+    }
+    bsr::fence_proxy_async();
+    bsr::named_barrier(kReady, 256);
+
+    // dV += P^T dO, dK += dS^T Q, dQ = dS K on this consumer's columns
+    bsr::fence_regs(dk);
+    bsr::fence_regs(dv);
+    bsr::wgmma_fence();
+    issue_grad(dv, bsr::smem_addr(p_tile), o + 2 * cw * kQPanel);
+    issue_grad(dk, bsr::smem_addr(ds_tile), q + 2 * cw * kQPanel);
+    issue_dq<256>(dq, bsr::smem_addr(ds_tile), k0 + 2 * cw * C::kKVPanel);
+    bsr::wgmma_commit();
+    bsr::wgmma_wait_all();
+    bsr::fence_regs(dk);
+    bsr::fence_regs(dv);
+    bsr::fence_regs(dq);
+
+    // dQ's 128 columns as four panels of 32 f32 columns, in the swizzled
+    // layout of the f32 map: Q's panels 2cw, 2cw+1, then dO's
+    unsigned char* panels[4] = {
+        sm.q + st * C::kQBytes + 2 * cw * kQPanel,
+        sm.q + st * C::kQBytes + (2 * cw + 1) * kQPanel,
+        sm.dout + st * C::kQBytes + 2 * cw * kQPanel,
+        sm.dout + st * C::kQBytes + (2 * cw + 1) * kQPanel};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int chunk = 2 * (j % 4) + tig / 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(panels[j / 4] + (r0 + 8 * h) * 128 +
+                                   ((chunk ^ grp) * 16) + (tig & 1) * 8) =
+            make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
       }
     }
-
-    // dS = P o (dP - Delta[row]) as bf16 A fragments; keys past n: P = 0
-    uint32_t dsa[kKStep / 16][4];
+    bsr::fence_proxy_async();
+    bsr::named_barrier(kStore + cw, 128);
+    if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < kST; ++j) {
-      const int kc = j0 + j * 8 + tig * 2;
-      const float p0 = kc < n ? __expf(s[j][0] - l0) : 0.f;
-      const float p1 = kc + 1 < n ? __expf(s[j][1] - l0) : 0.f;
-      const float p2 = kc < n ? __expf(s[j][2] - l1) : 0.f;
-      const float p3 = kc + 1 < n ? __expf(s[j][3] - l1) : 0.f;
-      dsa[j / 2][(j % 2) * 2 + 0] =
-          pack_f32(p0 * (dp[j][0] - d0), p1 * (dp[j][1] - d0));
-      dsa[j / 2][(j % 2) * 2 + 1] =
-          pack_f32(p2 * (dp[j][2] - d1), p3 * (dp[j][3] - d1));
-    }
-
-    // dQ += dS K over this tile's keys
-#pragma unroll
-    for (int kk = 0; kk < kKStep / 16; ++kk) {
-#pragma unroll
-      for (int t = 0; t < kOut; ++t) {
-        uint32_t b[2];
-        frag_b(b, sk, LD, kk * 16, c0 + t * 8, grp, tig);
-        mma_16816(acc[t], dsa[kk], b);
+      for (int pn = 0; pn < 4; ++pn) {
+        bsr::tma_reduce_add_3d(dq_map, panels[pn], cw * 128 + pn * 32, t * kQ,
+                               blockIdx.y);
       }
+      bsr::bulk_commit();
     }
   }
 
-  store_rows<D>(dq + base, acc, row, c0, n, tig);
+  // epilogue: V is read by both consumers' dP^T, so wait until both are
+  // done, then this consumer's columns of dK and dV into its panels of the
+  // K and V tiles, and one thread stores them
+  bsr::named_barrier(kDone, 256);
+  stage_rows<128>(sm.k, sm.v, dk, dv, C::kKVPanel, 2 * cw, r0, grp, tig);
+  bsr::fence_proxy_async();
+  bsr::named_barrier(kStore + cw, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int pn = 2 * cw; pn < 2 * cw + 2; ++pn) {
+      bsr::tma_store_3d(dk_map, sm.k + pn * C::kKVPanel, pn * 64, j0,
+                        blockIdx.y);
+      bsr::tma_store_3d(dv_map, sm.v + pn * C::kKVPanel, pn * 64, j0,
+                        blockIdx.y);
+    }
+    bsr::bulk_commit();
+    bsr::bulk_wait_read<0>();
+  }
 }
 
-// --------------------------------------------------- Delta = rowsum(dO o O)
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<bf16>(bf16 x) { return __bfloat162float(x); }
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_hopper_bf16(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap dk_map,
+                const __grid_constant__ CUtensorMap dv_map,
+                const __grid_constant__ CUtensorMap dq_map,
+                const float* __restrict__ lse_pad,
+                const float* __restrict__ delta_pad, int n) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* base =
+      smem_raw + ((1024 - (bsr::smem_addr(smem_raw) & 1023)) & 1023);
+  Smem sm;
+  sm.k = base;
+  sm.v = sm.k + C::kKVBytes;
+  sm.q = sm.v + C::kKVBytes;
+  sm.dout = sm.q + kStages * C::kQBytes;
+  sm.extra = sm.dout + kStages * C::kQBytes;
+  sm.lse = reinterpret_cast<float*>(sm.extra + C::kExtra);
+  sm.delta = sm.lse + kStages * kQ;
+  sm.bars = reinterpret_cast<Barriers*>(sm.delta + kStages * kQ);
+  Barriers* bars = sm.bars;
 
+  if (threadIdx.x == 0) {
+    bsr::mbar_init(&bars->kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bsr::mbar_init(&bars->full[s], 1);
+      bsr::mbar_init(&bars->empty[s], 2);
+    }
+    bsr::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int j0 = blockIdx.x * C::kKeys;
+  const int b = blockIdx.y;
+  // the warpgroup index through a shuffle, so that ptxas sees a branch
+  // uniform per warp (setmaxnreg is .sync.aligned)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer warpgroup: one thread keeps the ring full
+    bsr::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int tiles = (n + kQ - 1) / kQ;
+      bsr::mbar_expect_tx(&bars->kv_full, 2 * C::kKVBytes);
+      for (int pn = 0; pn < C::kPanels; ++pn) {
+        bsr::tma_load_3d(sm.k + pn * C::kKVPanel, &k_map, &bars->kv_full,
+                         pn * 64, j0, b);
+        bsr::tma_load_3d(sm.v + pn * C::kKVPanel, &v_map, &bars->kv_full,
+                         pn * 64, j0, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % kStages;
+        // the first pass over the ring finds every stage empty
+        bsr::mbar_wait(&bars->empty[st], ((t / kStages) & 1) ^ 1);
+        bsr::mbar_expect_tx(&bars->full[st],
+                            2 * C::kQBytes + 2 * kQ * (int)sizeof(float));
+        for (int pn = 0; pn < C::kPanels; ++pn) {
+          bsr::tma_load_3d(sm.q + st * C::kQBytes + pn * kQPanel, &q_map,
+                           &bars->full[st], pn * 64, t * kQ, b);
+          bsr::tma_load_3d(sm.dout + st * C::kQBytes + pn * kQPanel, &do_map,
+                           &bars->full[st], pn * 64, t * kQ, b);
+        }
+        const size_t r = ((size_t)b * tiles + t) * kQ;   // padded rows
+        bsr::bulk_load(sm.lse + st * kQ, lse_pad + r, kQ * sizeof(float),
+                       &bars->full[st]);
+        bsr::bulk_load(sm.delta + st * kQ, delta_pad + r, kQ * sizeof(float),
+                       &bars->full[st]);
+      }
+    }
+  } else {
+    bsr::setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (D == 128) {
+      consume128(sm, &dk_map, &dv_map, &dq_map, n, j0, wg - 1);
+    } else {
+      consume256(sm, &dk_map, &dv_map, &dq_map, n, j0, wg - 1);
+    }
+  }
+}
+
+constexpr int kPrepThreads = 256;   // one warp per row
+
+// Delta = rowsum(dO o O) and a copy of lse, both padded to whole query
+// tiles (Delta 0 and lse +inf past n), and dQ's f32 workspace zeroed
+template <int D>
+__global__ void __launch_bounds__(kPrepThreads)
+bwd_prep_bf16(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+              const float* __restrict__ lse, float* __restrict__ lse_pad,
+              float* __restrict__ delta_pad, float* __restrict__ dq_acc,
+              int n, int npad, int rows) {
+  constexpr int kPer = D / 32;   // columns a lane
+  const int row = blockIdx.x * (kPrepThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int b = row / npad;
+  const int i = row % npad;
+  if (i >= n) {
+    if (lane == 0) {
+      lse_pad[row] = INFINITY;
+      delta_pad[row] = 0.f;
+    }
+    return;
+  }
+  const size_t src = ((size_t)b * n + i) * D + lane * kPer;
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; e += 2) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(dout + src + e));
+    const float2 c = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(out + src + e));
+    acc = fmaf(a.x, c.x, acc);
+    acc = fmaf(a.y, c.y, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; e += 4) {
+    *reinterpret_cast<float4*>(dq_acc + src + e) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (lane == 0) {
+    delta_pad[row] = acc;
+    lse_pad[row] = lse[(size_t)b * n + i];
+  }
+}
+
+// dtheta = dQ's f32 workspace rounded to bf16, 8 values a thread
+__global__ void bwd_dq_cast(const float* __restrict__ acc,
+                            bf16* __restrict__ dq, size_t count8) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count8) return;
+  const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
+  const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+  reinterpret_cast<uint4*>(dq)[i] =
+      make_uint4(pack_f32(a.x, a.y), pack_f32(a.z, a.w), pack_f32(c.x, c.y),
+                 pack_f32(c.z, c.w));
+}
+
+// padded query rows of the workspace: whole query tiles
+inline int padded(int n) { return (n + kQ - 1) / kQ * kQ; }
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   float* work, void* dq, void* dk, void* dv, int batch,
+                   int n, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const int npad = padded(n);
+  if ((size_t)batch * npad > (size_t)INT_MAX) return cudaErrorInvalidValue;
+  const int rows = batch * npad;
+  float* dq_acc = work;                              // [B, N, D]
+  float* lse_pad = work + (size_t)batch * n * D;     // [B, npad]
+  float* delta_pad = lse_pad + rows;                 // [B, npad]
+  // first, since it binds the device's context to this thread, which the
+  // encoder needs: a first call can come from a thread that has none (the
+  // autograd engine's)
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_hopper_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return err;
+  bsr::EncodeTiled encode = bsr::encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap qm, km, vm, om, dkm, dvm, dqm;
+  if (!bsr::encode_map(&qm, encode, q, batch, n, D, kQ) ||
+      !bsr::encode_map(&km, encode, k, batch, n, D, C::kKeys) ||
+      !bsr::encode_map(&vm, encode, v, batch, n, D, C::kKeys) ||
+      !bsr::encode_map(&om, encode, dout, batch, n, D, kQ) ||
+      !bsr::encode_map(&dkm, encode, dk, batch, n, D, 64) ||
+      !bsr::encode_map(&dvm, encode, dv, batch, n, D, 64) ||
+      !bsr::encode_map(&dqm, encode, dq_acc, batch, n, D, kQ, true)) {
+    return cudaErrorInvalidValue;
+  }
+  const int per_block = kPrepThreads / 32;
+  bwd_prep_bf16<D><<<(rows + per_block - 1) / per_block, kPrepThreads, 0,
+                     stream>>>(static_cast<const bf16*>(dout),
+                               static_cast<const bf16*>(out), lse, lse_pad,
+                               delta_pad, dq_acc, n, npad, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid((n + C::kKeys - 1) / C::kKeys, batch);
+  bwd_hopper_bf16<D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, om, dkm, dvm, dqm, lse_pad, delta_pad, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t count8 = (size_t)batch * n * D / 8;
+  bwd_dq_cast<<<(unsigned)((count8 + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(dq), count8);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
+
+// ------------------------------------------ f32: Delta = rowsum(dO o O)
 constexpr int kDeltaThreads = 256;   // one warp per row
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kDeltaThreads)
-bwd_delta(const T* __restrict__ dout, const T* __restrict__ out,
-          float* __restrict__ delta, int rows) {
+bwd_delta_f32(const float* __restrict__ dout, const float* __restrict__ out,
+              float* __restrict__ delta, int rows) {
   const int row = blockIdx.x * (kDeltaThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* a = dout + (size_t)row * D;
-  const T* b = out + (size_t)row * D;
+  const float* a = dout + (size_t)row * D;
+  const float* b = out + (size_t)row * D;
   float acc = 0.f;
 #pragma unroll
   for (int c = 0; c < D / 32; ++c) {
-    acc = fmaf(to_f32(a[lane + 32 * c]), to_f32(b[lane + 32 * c]), acc);
+    acc = fmaf(a[lane + 32 * c], b[lane + 32 * c], acc);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -582,49 +1005,17 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int D>
-cudaError_t launch_delta(const void* dout, const void* out, float* delta,
-                         int rows, cudaStream_t stream) {
-  const int per_block = kDeltaThreads / 32;
-  bwd_delta<T, D><<<(rows + per_block - 1) / per_block, kDeltaThreads, 0,
-                    stream>>>(static_cast<const T*>(dout),
-                              static_cast<const T*>(out), delta, rows);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* out, const void* dout, const float* lse,
-                        float* delta, void* dq, void* dk, void* dv, int batch,
-                        int n, cudaStream_t stream) {
-  cudaError_t err = launch_delta<bf16, D>(dout, out, delta, batch * n, stream);
-  if (err != cudaSuccess) return err;
-  constexpr int LD = D + kPad;
-  const size_t smem1 = (size_t)(2 * kRows + 2 * kQStep) * LD * sizeof(bf16) +
-                       2 * kQStep * sizeof(float);
-  const size_t smem2 = (size_t)(2 * kRows + 2 * kKStep) * LD * sizeof(bf16);
-  if ((err = set_smem(bwd_dkdv_bf16<D>, smem1)) != cudaSuccess) return err;
-  if ((err = set_smem(bwd_dq_bf16<D>, smem2)) != cudaSuccess) return err;
-  const dim3 grid((n + kRows - 1) / kRows, batch, D / kDH);
-  const bf16* bq = static_cast<const bf16*>(q);
-  const bf16* bk = static_cast<const bf16*>(k);
-  const bf16* bv = static_cast<const bf16*>(v);
-  const bf16* bdo = static_cast<const bf16*>(dout);
-  bwd_dkdv_bf16<D><<<grid, kThreads, smem1, stream>>>(
-      bq, bk, bv, bdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dq_bf16<D><<<grid, kThreads, smem2, stream>>>(
-      bq, bk, bv, bdo, lse, delta, static_cast<bf16*>(dq), n);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv, int batch,
                        int n, cudaStream_t stream) {
-  cudaError_t err = launch_delta<float, D>(dout, out, delta, batch * n, stream);
+  const int rows = batch * n;
+  const int per_block = kDeltaThreads / 32;
+  bwd_delta_f32<D><<<(rows + per_block - 1) / per_block, kDeltaThreads, 0,
+                     stream>>>(static_cast<const float*>(dout),
+                               static_cast<const float*>(out), delta, rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem1 =
       (size_t)(2 * kF32Rows * D + 2 * kF32Step * (D + 1) + 2 * kF32Step) *
@@ -651,25 +1042,36 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// Floats of the f32 `workspace` that bsr_nonlocal_attn_bwd takes:
+// at bf16, dQ's f32 sums [B, N, D] and the padded lse and Delta
+// (2 x [B, N rounded up to 64]); at f32, Delta [B, N].
+long long bsr_nonlocal_attn_bwd_workspace(int batch, int n, int d,
+                                          int dtype) {
+  if (dtype == 1) {
+    return (long long)batch * n * d + 2LL * batch * hop::padded(n);
+  }
+  return (long long)batch * n;
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  `lse` is the forward kernel's row
-// logsumexp ([B, N] f32); `delta` is a [B, N] f32 workspace.  Writes
+// logsumexp ([B, N] f32); `workspace` is the f32 scratch above.  Writes
 // dtheta, dphi and dg.  Returns a cudaError_t value.
 int bsr_nonlocal_attn_bwd(const void* theta, const void* phi, const void* g,
                           const void* out, const void* dout, const void* lse,
-                          void* delta, void* dtheta, void* dphi, void* dg,
+                          void* workspace, void* dtheta, void* dphi, void* dg,
                           int batch, int n, int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  float* ws = static_cast<float*>(workspace);
   if (batch < 1 || batch > 65535 || n < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && d == 128)
-    return (int)launch_bf16<128>(theta, phi, g, out, dout, l, dl, dtheta, dphi, dg, batch, n, s);
+    return (int)hop::launch<128>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   if (dtype == 1 && d == 256)
-    return (int)launch_bf16<256>(theta, phi, g, out, dout, l, dl, dtheta, dphi, dg, batch, n, s);
+    return (int)hop::launch<256>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(theta, phi, g, out, dout, l, dl, dtheta, dphi, dg, batch, n, s);
+    return (int)launch_f32<128>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   if (dtype == 0 && d == 256)
-    return (int)launch_f32<256>(theta, phi, g, out, dout, l, dl, dtheta, dphi, dg, batch, n, s);
+    return (int)launch_f32<256>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   return (int)cudaErrorInvalidValue;
 }
 

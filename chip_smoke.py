@@ -4,8 +4,9 @@
 
 Builds the port's hand-written kernels from the sources in this checkout
 (one nvcc per source, started together) and fails if ptxas serialises the
-forward kernel's wgmma or spills it, holds each kernel against its plain
-PyTorch version on the card and times it beside flash SDPA, runs the GSC
+wgmma of a bf16 attention kernel or spills one, holds each kernel against
+its plain PyTorch version on the card and times it in turns with flash
+SDPA, forward and backward, runs the GSC
 generator against the TF-reference golden, serves a batch of requests
 through `ShadowRemovalService` (the serving path, counting kernel launches),
 times the bench.py configuration, runs the GSC GAN train step at full width
@@ -56,10 +57,10 @@ from blindshadowremoval_tpu_torch.models.weights import (
 from blindshadowremoval_tpu_torch.ops import _build
 from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
-    KERNEL_BWD_TOLERANCE,
     KERNEL_TOLERANCE,
     SUPPORTED_D,
     _launch_fwd,
+    bwd_tolerance,
     nonlocal_attention,
     nonlocal_attention_bwd,
     nonlocal_attention_bwd_reference,
@@ -108,11 +109,17 @@ BOUNDARY_SHAPE = (3, 200, 128)
 # the same head dim is the yardstick of each
 K1_TIMED = [((128, 1024, 128), False), ((64, 1024, 128), True),
             ((2, 1024, 256), False), ((64, 1024, 256), False)]
-# K2 against the plain backward, each within KERNEL_BWD_TOLERANCE[dtype]
+# K2 against the plain backward, each gradient within bwd_tolerance (its
+# derivation sits beside KERNEL_BWD_TOLERANCE in ops/nonlocal_attn.py)
 BWD_CASES = [((64, 1024, 128), torch.bfloat16),     # the train step's shape
              ((2, 1024, 128), torch.float32),
              ((2, 200, 128), torch.bfloat16),       # ragged N
+             ((2, 129, 128), torch.bfloat16),       # one key past a block
+             ((300, 64, 128), torch.bfloat16),      # short N
              ((2, 1024, 256), torch.bfloat16)]      # RGB's width
+# K2 timed in turns with flash SDPA's backward: the train step's shape and
+# the RGB variant's width at the same batch
+K2_TIMED = [(64, 1024, 128), (64, 1024, 256)]
 
 # the train path: GSC at 256 px, bf16, batch 32 (64 views a step, the size
 # of docs/perf.md's fit() measurements)
@@ -270,9 +277,10 @@ def main() -> int:
                         for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Function properties" in ln))
-    faults = k1_ptxas_faults(logs["nonlocal_attn"])
-    if faults:
-        raise SystemExit("K1's bf16 kernels: " + "; ".join(faults))
+    for name, label, keys, count in PTXAS_CHECKED:
+        faults = ptxas_faults(logs[name], label, keys, count)
+        if faults:
+            raise SystemExit(f"{label}'s bf16 kernels: " + "; ".join(faults))
 
     phase("3 kernel K1 vs its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -559,13 +567,9 @@ def main() -> int:
         print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  {name}")
 
     phase("7 kernel K2 vs its plain backward")
-    k2_err, k2_ms, bwd_plain_ms, sdpa_bwd_ms = check_k2(dev)
-    b, n, d = BWD_CASES[0][0]
-    k2_bound_ms, k2_bound_by = attention_bwd_bound_ms(b, n, d, torch.bfloat16)
-    print(f"({b},{n},{d}) bf16: kernel {k2_ms:.4f} ms, plain backward "
-          f"{bwd_plain_ms:.4f} ms, flash sdpa backward {sdpa_bwd_ms:.4f} ms, "
-          f"bound {k2_bound_ms:.4f} ms ({k2_bound_by}); kernel at "
-          f"{100 * k2_bound_ms / k2_ms:.1f}% of the bound", flush=True)
+    k2_err, k2_timed = check_k2(dev)
+    k2_ms, bwd_plain_ms, sdpa_bwd_ms, k2_bound_ms, k2_bound_by = k2_timed[
+        K2_TIMED[0]]
 
     phase("8 train: the GSC GAN train step at full width, the train path")
     k1_train, k2_train = train_full_width(dev, smi)
@@ -607,11 +611,21 @@ def main() -> int:
     return 0
 
 
-def k1_ptxas_faults(log: str) -> list[str]:
-    """Prints every line of ptxas's report on K1's library that mentions
+# (library, label, name substrings of its bf16 kernels, how many): the
+# kernels whose ptxas report phase 2 holds to no wgmma serialisation and no
+# spill
+PTXAS_CHECKED = (
+    ("nonlocal_attn", "K1", ("attn_fwd_bf16",), len(SUPPORTED_D)),
+    ("nonlocal_attn_bwd", "K2", ("bwd_hopper_bf16",), len(SUPPORTED_D)),
+)
+
+
+def ptxas_faults(log: str, label: str, keys: tuple, count: int) -> list[str]:
+    """Prints every line of ptxas's report on one library that mentions
     wgmma, and returns the faults in it: wgmma serialised, or spills in a
-    bf16 kernel (either makes the kernel right and slow).  Raises when the
-    report does not cover both bf16 kernels."""
+    kernel whose name holds one of `keys` (either makes the kernel right
+    and slow).  Raises when the report does not cover `count` such
+    kernels."""
     faults, seen, current = [], set(), ""
     for line in log.splitlines():
         if "wgmma" in line:
@@ -620,14 +634,14 @@ def k1_ptxas_faults(log: str) -> list[str]:
                 faults.append(line.strip())
         if "Function properties for" in line:
             current = line.split("Function properties for")[-1].strip()
-        elif "spill" in line and "attn_fwd_bf16" in current:
+        elif "spill" in line and any(k in current for k in keys):
             seen.add(current)
             if any(int(v) for v in re.findall(r"(\d+) bytes spill", line)):
                 faults.append(f"{current}: {line.strip()}")
-    if len(seen) != len(SUPPORTED_D):
-        raise SystemExit(f"ptxas reported on {len(seen)} bf16 K1 kernels, "
-                         f"expected {len(SUPPORTED_D)}")
-    print(f"ptxas: {len(seen)} bf16 K1 kernels, "
+    if len(seen) != count:
+        raise SystemExit(f"ptxas reported on {len(seen)} bf16 {label} "
+                         f"kernels, expected {count}")
+    print(f"ptxas: {len(seen)} bf16 {label} kernels, "
           f"{'no wgmma serialisation, no spills' if not faults else 'FAULTS'}")
     return faults
 
@@ -638,24 +652,25 @@ def _excess(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
             - rtol * ref.float().abs()).max().item()
 
 
+def k2_operands(gen, shape, dtype):
+    """theta, phi, g of 0.3 randn and dout of randn, the scales of
+    KERNEL_BWD_TOLERANCE's derivation."""
+    t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=gen.device)
+               for _ in range(3))
+    do = torch.randn(*shape, generator=gen, device=gen.device)
+    return [x.to(dtype) for x in (t, p, g, do)]
+
+
 def check_k2(dev):
     """K2 (through the autograd Function, after K1) against the plain
     backward and against autograd through the plain forward in f32, at
-    BWD_CASES; then K2's, the plain backward's and flash SDPA's backward
-    times at the train shape.  Returns (max_abs_err, ms, plain_ms,
-    library_ms)."""
+    BWD_CASES; then K2 and flash SDPA's backward timed in turns, and the
+    plain backward, at K2_TIMED.  Returns (max_abs_err, {shape: (ms,
+    plain_ms, library_ms, bound_ms, bound_by)})."""
     gen = torch.Generator(device=dev).manual_seed(1)
-
-    def operands(shape, dtype):
-        t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
-                   for _ in range(3))
-        do = torch.randn(*shape, generator=gen, device=dev)
-        return [x.to(dtype) for x in (t, p, g, do)]
-
     max_err = 0.0
     for shape, dtype in BWD_CASES:
-        atol, rtol = KERNEL_BWD_TOLERANCE[dtype]
-        t, p, g, do = operands(shape, dtype)
+        t, p, g, do = k2_operands(gen, shape, dtype)
         leaves = [x.clone().requires_grad_() for x in (t, p, g)]
         k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
         grads = torch.autograd.grad(nonlocal_attention(*leaves), leaves, do)
@@ -668,6 +683,7 @@ def check_k2(dev):
                                    leaves32, do.float())
         ok = launched == (1, 1)
         for name, a, r, au in zip(("dtheta", "dphi", "dg"), grads, ref, auto):
+            atol, rtol = bwd_tolerance(r, dtype)
             err = (a.float() - r.float()).abs().max().item()
             ex, ex_auto = _excess(a, r, rtol), _excess(a, au, rtol)
             good = (bool(torch.isfinite(a).all()) and a.dtype == dtype
@@ -678,28 +694,45 @@ def check_k2(dev):
                   f"max |ref| {r.float().abs().max().item():.3f}, "
                   f"max(err - {rtol:.3g}|ref|) {ex:.3e} vs the plain "
                   f"backward, {ex_auto:.3e} vs autograd of the plain "
-                  f"forward (atol {atol:g}) {'ok' if good else 'FAIL'}",
+                  f"forward (atol {atol:.3g}) {'ok' if good else 'FAIL'}",
                   flush=True)
         if not ok:
             raise SystemExit(f"K2 disagrees with its plain backward at "
                              f"{shape} (launches K1, K2: {launched})")
-    (b, n, d), _ = BWD_CASES[0]
-    t, p, g, do = operands((b, n, d), torch.bfloat16)
-    with torch.no_grad():
-        out, lse = _launch_fwd(t, p, g, with_lse=True)
-        k2_ms = cuda_ms(lambda: nonlocal_attention_bwd(t, p, g, out, lse, do))
-        plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(t, p, g,
-                                                                    do))
-    # yardstick only: the port never calls it.  The backward of flash SDPA
-    # on [B, 1, N, D] with scale 1, the forward kept out of the timing; the
-    # gradients returned fresh, as K2's are, not accumulated into .grad
-    q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-    do4 = do[:, None].contiguous()
-    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                                  retain_graph=True))
-    return max_err, k2_ms, plain_ms, sdpa_ms
+    timed = {}
+    for b, n, d in K2_TIMED:
+        t, p, g, do = k2_operands(gen, (b, n, d), torch.bfloat16)
+        with torch.no_grad():
+            out, lse = _launch_fwd(t, p, g, with_lse=True)
+        # yardstick only: the port never calls it.  The backward of flash
+        # SDPA on [B, 1, N, D] with scale 1, the forward kept out of the
+        # timing; the gradients returned fresh, as K2's are, not
+        # accumulated into .grad
+        q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        do4 = do[:, None].contiguous()
+        turns = alternate_ms({
+            "kernel": lambda: nonlocal_attention_bwd(t, p, g, out, lse, do),
+            "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                                 retain_graph=True)})
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
+                t, p, g, do))
+        k2_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
+        bound_ms, bound_by = attention_bwd_bound_ms(b, n, d, torch.bfloat16)
+        timed[(b, n, d)] = (k2_ms, plain_ms, sdpa_ms, bound_ms, bound_by)
+        tflops = 10.0 * b * n * n * d / k2_ms / 1e9
+        print(f"({b},{n},{d}) bf16: kernel {k2_ms:.4f} ms ({tflops:.0f} "
+              f"TFLOP/s, {100 * bound_ms / k2_ms:.1f}% of the bound "
+              f"{bound_ms:.4f} ms, {bound_by}), plain backward "
+              f"{plain_ms:.4f} ms, flash sdpa backward {sdpa_ms:.4f} ms; "
+              f"kernel / flash {k2_ms / sdpa_ms:.2f} (medians; by turn "
+              f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
+              f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])})",
+              flush=True)
+        del q4, k4, v4, o4, do4
+    return max_err, timed
 
 
 def synthetic_train_batch(views: int, size: int, device, seed: int = 0):
@@ -868,7 +901,8 @@ def forward_stages(state, batch, gen, step_ms: float) -> None:
 # (kind, substrings of a kernel's name), the first match wins
 _KERNEL_KINDS = (
     ("layout transposes (cuDNN NCHW <-> NHWC)", ("nchwToNhwc", "nhwcToNchw")),
-    ("K1 and K2", ("attn_fwd", "bwd_dkdv", "bwd_dq", "bwd_delta")),
+    ("K1 and K2", ("attn_fwd", "bwd_dkdv", "bwd_dq", "bwd_delta",
+                   "bwd_prep", "bwd_hopper")),
     ("FFT (disc blurs)", ("fft",)),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("matrix products", ("gemm", "Kernel2")),

@@ -25,7 +25,7 @@ def test_source_files_follow_quoted_includes(csrc_copy):
     assert [p.name for p in _build.source_files("nonlocal_attn")] == [
         "nonlocal_attn.cu", "hopper.cuh"]
     assert [p.name for p in _build.source_files("nonlocal_attn_bwd")] == [
-        "nonlocal_attn_bwd.cu"]
+        "nonlocal_attn_bwd.cu", "hopper.cuh"]
 
 
 def test_source_files_follow_nested_includes(csrc_copy):
@@ -39,7 +39,10 @@ def test_source_files_follow_nested_includes(csrc_copy):
 @pytest.mark.parametrize("edited,name,moves", [
     ("hopper.cuh", "nonlocal_attn", True),        # an included header
     ("nonlocal_attn.cu", "nonlocal_attn", True),  # the source itself
-    ("hopper.cuh", "nonlocal_attn_bwd", False),   # a header it does not use
+    ("hopper.cuh", "nonlocal_attn_bwd", True),    # the header K2 shares
+    ("nonlocal_attn_bwd.cu", "nonlocal_attn_bwd", True),
+    ("nonlocal_attn.cu", "nonlocal_attn_bwd", False),   # a source it does
+    ("nonlocal_attn_bwd.cu", "nonlocal_attn", False),   # not include
 ])
 def test_library_path_follows_what_the_source_includes(csrc_copy, edited,
                                                        name, moves):

@@ -21,8 +21,10 @@ from blindshadowremoval_tpu.ops.pallas.nonlocal_attn import (
     _pallas_attention_bwd,
 )
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
+    BWD_SCALE_FLOOR,
     KERNEL_BWD_TOLERANCE,
     KERNEL_TOLERANCE,
+    bwd_tolerance,
     nonlocal_attention,
     nonlocal_attention_bwd_reference,
     nonlocal_attention_reference,
@@ -211,13 +213,23 @@ def test_no_grad_forward_skips_the_function(rng):
         assert nonlocal_attention(*a).grad_fn is None
 
 
+# keys per block of the bf16 backward by head width (csrc/nonlocal_attn_bwd.cu,
+# hop::Cfg<D>::kKeys): each block adds its partial dtheta into an f32
+# workspace
+BWD_KEY_BLOCK = {128: 128, 256: 64}
+
+
 def _emulate_bwd(t, p, g, do, p_dtype=torch.bfloat16, delta_scale=1.0):
     """K2's numerics (csrc/nonlocal_attn_bwd.cu) in plain PyTorch: f32
     scores of the bf16 operands, P = exp(S - lse) rounded to `p_dtype` as
     the operand of dg, dS = P o (dP - Delta) rounded to `p_dtype` as the
     operand of dtheta and dphi, Delta = rowsum(dO o O) of the bf16 forward
     output (times `delta_scale`, to model a broken kernel), each gradient
-    rounded once to bf16."""
+    rounded once to bf16.  Since the one-pass kernel, dtheta is the f32
+    sum of one partial product per block of BWD_KEY_BLOCK[D] keys (128 at
+    D=128, 64 at D=256), added in no fixed order (here the last block
+    first) before its bf16 rounding, where the two-pass kernel it replaced
+    summed it in one f32 accumulator in key order."""
     o = nonlocal_attention_reference(t, p, g)
     s = torch.matmul(t.float(), p.float().transpose(1, 2))
     prob = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
@@ -225,7 +237,10 @@ def _emulate_bwd(t, p, g, do, p_dtype=torch.bfloat16, delta_scale=1.0):
     dp = torch.matmul(do.float(), g.float().transpose(1, 2))
     dg = torch.matmul(prob.to(p_dtype).float().transpose(1, 2), do.float())
     ds = (prob * (dp - delta)).to(p_dtype).float()
-    dt = torch.matmul(ds, p.float())
+    n, keys = t.shape[1], BWD_KEY_BLOCK[t.shape[2]]
+    dt = torch.zeros(t.shape)
+    for j in reversed(range(0, n, keys)):
+        dt += torch.matmul(ds[..., j:j + keys], p.float()[:, j:j + keys])
     dph = torch.matmul(ds.transpose(1, 2), t.float())
     return dt.bfloat16(), dph.bfloat16(), dg.bfloat16()
 
@@ -238,36 +253,47 @@ def _bwd_case(b, n, d):
 
 
 def _within_bwd_tolerance(out, ref):
-    atol, rtol = KERNEL_BWD_TOLERANCE[torch.bfloat16]
-    return all(bool(((o.float() - r.float()).abs()
-                     <= atol + rtol * r.float().abs()).all())
-               for o, r in zip(out, ref))
+    for o, r in zip(out, ref):
+        atol, rtol = bwd_tolerance(r, torch.bfloat16)
+        if not bool(((o.float() - r.float()).abs()
+                     <= atol + rtol * r.float().abs()).all()):
+            return False
+    return True
 
 
+# the main path's widths, ragged N, N=1 (dtheta and dphi zero in exact
+# arithmetic), N around the 64-query tile and the 128-key block, and
+# short N, where the gradients are largest
 @pytest.mark.parametrize("b,n,d", [(8, 1024, 128), (2, 200, 128),
-                                   (4, 1024, 256)])
+                                   (4, 1024, 256), (300, 64, 128),
+                                   (2, 1, 128), (2, 65, 128), (2, 127, 128),
+                                   (2, 129, 128)])
 def test_bwd_tolerance_admits_the_kernels_numerics(b, n, d):
     t, p, g, do = _bwd_case(b, n, d)
     ref = nonlocal_attention_bwd_reference(t, p, g, do)
     assert _within_bwd_tolerance(_emulate_bwd(t, p, g, do), ref)
 
 
-def test_bwd_tolerance_stops_short_of_short_n():
-    # the scope of KERNEL_BWD_TOLERANCE: at N=64 the gradients reach ~2.3
-    # and K2's own rounding of P and dS, with the exact forward output,
-    # already lies outside it, so the card tests leave (300, 64, 128) out
-    # of their K2 cases
-    t, p, g, do = _bwd_case(300, 64, 128)
-    ref = nonlocal_attention_bwd_reference(t, p, g, do)
-    assert not _within_bwd_tolerance(_emulate_bwd(t, p, g, do), ref)
-
-
+# at the train step's shape, and at the RGB width and at short N, where the
+# atol (in proportion to the largest gradient) is widest
+@pytest.mark.parametrize("b,n,d", [(8, 1024, 128), (4, 1024, 256),
+                                   (300, 64, 128)])
 @pytest.mark.parametrize("p_dtype,delta_scale", [
     (torch.float8_e4m3fn, 1.0),    # P and dS rounded to fp8, not bf16
     (torch.bfloat16, 1.03),        # rowsum(dO o O) off by 3%
 ])
-def test_bwd_tolerance_rejects_broken_numerics(p_dtype, delta_scale):
-    t, p, g, do = _bwd_case(8, 1024, 128)
+def test_bwd_tolerance_rejects_broken_numerics(p_dtype, delta_scale, b, n,
+                                               d):
+    t, p, g, do = _bwd_case(b, n, d)
     ref = nonlocal_attention_bwd_reference(t, p, g, do)
     out = _emulate_bwd(t, p, g, do, p_dtype, delta_scale)
     assert not _within_bwd_tolerance(out, ref)
+
+
+def test_bwd_tolerance_scales_with_the_gradient():
+    # atol follows each gradient's largest magnitude, floored
+    share, rtol = KERNEL_BWD_TOLERANCE[torch.bfloat16]
+    ref = torch.tensor([[-2.0, 0.5]])
+    assert bwd_tolerance(ref, torch.bfloat16) == (2.0 * share, rtol)
+    assert bwd_tolerance(0 * ref, torch.bfloat16) == (
+        BWD_SCALE_FLOOR * share, rtol)
