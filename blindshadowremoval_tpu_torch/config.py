@@ -1,4 +1,5 @@
-"""Configuration of the ported paths: GSC serving and the GSC GAN train step.
+"""Configuration of the ported paths: GSC serving, the GSC GAN train step
+and GSC evaluation (UCB, SFW, SFW video, in-the-wild).
 
 Port of `blindshadowremoval_tpu/config.py`, cut to the fields those paths
 read.  Options whose code paths are not ported yet raise
@@ -15,12 +16,18 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-# preset -> ROADMAP.md item that ports its code path
-_NOT_PORTED_PRESETS = {"ucb": "B3", "sfw": "D1", "sfw_video": "D1"}
-
 _PRESETS = {
     # in-the-wild single-image inference, the serving path
     "in_the_wild": dict(mode="in_the_wild"),
+    # UCB eval with part-mask post-processing; the evaluation presets ship
+    # host-rasterized maps, as the JAX package's evaluators do by default
+    "ucb": dict(mode="ucb", part_mask_root=".", device_geometry=False),
+    # SFW shadow-segmentation eval and SFW per-frame video removal.  Both
+    # default to the TSM variant, as in the JAX package, so they raise
+    # (ROADMAP D1) unless the caller asks for variant="gsc"
+    "sfw": dict(mode="sfw", variant="tsm", device_geometry=False),
+    "sfw_video": dict(mode="sfw_video", variant="tsm",
+                      device_geometry=False),
     # GAN training; the train pipeline ships host-rasterized maps unless
     # asked otherwise, as in the JAX package
     "train": dict(mode="train", device_geometry=False),
@@ -40,6 +47,14 @@ class Config:
     fold_bn: bool = False              # fold eval BatchNorm into the convs
     egress_dtype: str = "float32"      # dtype of the generator's outputs
     mode: str = "in_the_wild"          # preset name of the run
+    # evaluation (eval/evaluators.py, data/dataset.py)
+    eval_views: int = 10               # views per UCB / in-the-wild sample:
+                                       # the anchor + eval_views-1 random
+                                       # same-folder references
+    data_dirs_test: tuple = ("sample_imgs/*",)   # globs of sample folders
+    part_mask_root: str = ""           # root of the UCB part-mask dirs
+    checkpoint_dir: str = "./checkpoints"        # result strips go to
+                                                 # <checkpoint_dir>/test/
     # training (train/trainer.py)
     batch_size: int = 1                # samples per step, 2 mirrored views each
     learning_rate: float = 1e-4        # Adam, both networks
@@ -102,10 +117,6 @@ class Config:
 
 def get_config(preset: str = "in_the_wild", **overrides) -> Config:
     """Build a config from a named preset plus keyword overrides."""
-    if preset in _NOT_PORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED_PRESETS[preset]})")
     if preset not in _PRESETS:
         raise ValueError(f"unknown preset {preset!r}")
     return Config(**{**_PRESETS[preset], **overrides})

@@ -1,5 +1,5 @@
-"""Colour spaces, gradients and resampling of [..., H, W, C] images (port of
-`blindshadowremoval_tpu/ops/image.py`)."""
+"""Colour spaces, gradients, resampling and the PSNR / SSIM metrics of
+[..., H, W, C] images (port of `blindshadowremoval_tpu/ops/image.py`)."""
 
 from __future__ import annotations
 
@@ -123,3 +123,67 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     rows = torch.from_numpy(_nearest_index(size[0], h)).to(x.device)
     cols = torch.from_numpy(_nearest_index(size[1], w)).to(x.device)
     return x.index_select(-3, rows).index_select(-2, cols)
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """tf.image.psnr over [..., H, W, C] -> [...] (dB)."""
+    mse = ((a - b) ** 2).mean(dim=(-3, -2, -1))
+    return 10.0 * torch.log10(max_val ** 2 / mse.clamp_min(1e-12))
+
+
+def _ssim_kernel(size: int = 11, sigma: float = 1.5,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """The normalized 1-D Gaussian of tf.image.ssim, in f32."""
+    n = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
+    k = torch.exp(-0.5 * (n / sigma) ** 2)
+    return k / k.sum()
+
+
+def _filter2d_valid(x: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
+    """Separable VALID filter of [B, H, W, C] with a 1-D kernel on both
+    axes, as f32 shifted sums on the vector units.
+
+    SSIM's variance E[x^2] - E[x]^2 cancels catastrophically, so the filter
+    must run in true f32 (the JAX package asks XLA for Precision.HIGHEST).
+    A cuDNN convolution would run in TF32 wherever the process allows it
+    (PyTorch's default for cuDNN), whatever this function asks; sums of
+    shifted slices never touch a tensor core."""
+    n = k1d.shape[0]
+    h = x.shape[1] - n + 1
+    y = k1d[0] * x[:, 0:h]
+    for i in range(1, n):
+        y = y + k1d[i] * x[:, i:i + h]
+    w = x.shape[2] - n + 1
+    out = k1d[0] * y[:, :, 0:w]
+    for i in range(1, n):
+        out = out + k1d[i] * y[:, :, i:i + w]
+    return out
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """tf.image.ssim defaults: 11x11 Gaussian sigma=1.5, k1=.01, k2=.03.
+    a, b: [..., H, W, C] -> [...] mean SSIM, computed in f32."""
+    a = a.float()
+    b = b.float()
+    lead = a.shape[:-3]
+    ab = a.reshape((-1,) + a.shape[-3:])
+    bb = b.reshape((-1,) + b.shape[-3:])
+    k = _ssim_kernel(device=a.device)
+    c1 = (0.01 * max_val) ** 2
+    c2 = (0.03 * max_val) ** 2
+
+    mu_a = _filter2d_valid(ab, k)
+    mu_b = _filter2d_valid(bb, k)
+    aa = _filter2d_valid(ab * ab, k)
+    bbm = _filter2d_valid(bb * bb, k)
+    abm = _filter2d_valid(ab * bb, k)
+
+    # exact variances are >= 0; clamp the cancellation residue so the cs
+    # denominator can never cross zero
+    va = (aa - mu_a * mu_a).clamp_min(0.0)
+    vb = (bbm - mu_b * mu_b).clamp_min(0.0)
+    cov = abm - mu_a * mu_b
+
+    lum = (2 * mu_a * mu_b + c1) / (mu_a ** 2 + mu_b ** 2 + c1)
+    cs = (2 * cov + c2) / (va + vb + c2)
+    return (lum * cs).mean(dim=(1, 2, 3)).reshape(lead)

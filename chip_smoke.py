@@ -11,19 +11,27 @@ generator against the TF-reference golden, serves a batch of requests
 through `ShadowRemovalService` (the serving path, counting kernel launches),
 times the bench.py configuration, runs the GSC GAN train step at full width
 (the train path, counting launches of the forward and backward kernels) and
-an f32 step against the same step on the CPU, and prints one JSON line with
-every kernel and, last, `{"ok": true, "device": {...}}`.  Any failure ends
+an f32 step against the same step on the CPU, drives the evaluation path
+(SFW-GSC AUC and SFW video against the TF-reference goldens, in-the-wild,
+and UCB with the heuristic post-processor, host-orchestrated and fused k
+images a pass, on a synthetic UCB tree) with K1 held and timed at the
+evaluation batches, and prints one JSON line with every kernel and, last,
+`{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,10 +41,25 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from blindshadowremoval_tpu_torch.config import get_config
+from blindshadowremoval_tpu_torch.data.dataset import Dataset
 from blindshadowremoval_tpu_torch.data.synthesis import (
     compose_from_draws,
     draw_compose,
 )
+from blindshadowremoval_tpu_torch.eval.evaluators import (
+    InTheWildEvaluator,
+    SFWEvaluator,
+    SFWVideoEvaluator,
+    UCBEvaluator,
+)
+from blindshadowremoval_tpu_torch.eval.fused import (
+    build_fused_ucb_batch_step,
+    dynamic_resize_matrix,
+    fused_postprocess,
+    prep_part_inputs,
+    resize_into_box,
+)
+from blindshadowremoval_tpu_torch.eval.postprocess import PostprocessParams
 from blindshadowremoval_tpu_torch.eval.serving import ShadowRemovalService
 from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
@@ -67,16 +90,20 @@ from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     nonlocal_attention_reference,
 )
 from blindshadowremoval_tpu_torch.ops.filters import find_edge
+from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
 from blindshadowremoval_tpu_torch.ops.image import rgb_to_grayscale
+from blindshadowremoval_tpu_torch.ops.image import ssim as ssim_fn
 from blindshadowremoval_tpu_torch.train import trainer as trainer_module
 from blindshadowremoval_tpu_torch.train.losses import (
     multi_scale_gradient_loss,
     reconstruction_losses,
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
+from blindshadowremoval_tpu_torch.utils.imageio import read_png, write_png
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "tests" / "goldens" / "tf_ref" / "e2e_eval.npz"
+TF_REF = ROOT / "tests" / "goldens" / "tf_ref"
+GOLDEN = TF_REF / "e2e_eval.npz"
 
 # H100 SXM published dense peaks (NVIDIA H100 datasheet)
 PEAK_BF16_FLOPS = 989e12
@@ -153,6 +180,26 @@ CHECK_ZERO_SHARE = 1e-5
 CHECK_STRAY_SHARE = 1e-4
 
 
+# the evaluation path (phase 10): K1 at the batches the evaluators give it
+# (one UCB image or SFW sample of 10 views; the fused UCB pass of 8 images),
+# held to KERNEL_TOLERANCE and timed in turns with flash SDPA
+EVAL_ATTN_CASES = [((10, 1024, 128), torch.bfloat16),
+                   ((10, 1024, 128), torch.float32),
+                   ((80, 1024, 128), torch.bfloat16)]
+EVAL_K1_TIMED = [(10, 1024, 128), (80, 1024, 128)]
+UCB_IMAGES = 9               # k=8 leaves a padded tail of one
+UCB_PER_CALL = 8
+UCB_PARTS = {                # part-mask rectangles (rows, cols) at 256 px
+    "face_hair": ((20, 240), (30, 230)),
+    "face_no_hair": ((40, 230), (40, 220)),
+    "mouth": ((170, 200), (100, 160)),
+    "nose": ((110, 165), (110, 145)),
+    "eyebrow": ((70, 85), (60, 200)),
+    "eye": ((90, 105), (60, 200)),
+    "glasses": ((88, 108), (55, 205)),
+}
+
+
 def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
 
@@ -172,12 +219,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3) -> dict:
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean milliseconds of device kernels per call of `fn`, from
+    torch.profiler over `iters` calls: the kernels' own time, whatever the
+    host's launch rate (CUDA events between back-to-back calls measure the
+    launch rate instead when a call is shorter than its launch)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / iters
+
+
+def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3,
+                 iters: int = 20) -> dict:
     """{name: [ms per call, one per turn]} of each function in `fns`, timed
-    by cuda_ms in turns (a, b, a, b, ...) `reps` times.  The first function
-    runs alone for `settle_s` seconds before, so the card's clocks have left
-    the state the work before (a build, a burst of matrix products) put
-    them in."""
+    by cuda_ms over `iters` calls in turns (a, b, a, b, ...) `reps` times.
+    The first function runs alone for `settle_s` seconds before, so the
+    card's clocks have left the state the work before (a build, a burst of
+    matrix products) put them in."""
     first = next(iter(fns.values()))
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < settle_s:
@@ -186,7 +250,7 @@ def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3) -> dict:
     times = {name: [] for name in fns}
     for _ in range(reps):
         for name, fn in fns.items():
-            times[name].append(cuda_ms(fn))
+            times[name].append(cuda_ms(fn, iters=iters))
     return times
 
 
@@ -220,6 +284,79 @@ def attention_bwd_bound_ms(b: int, n: int, d: int, dtype: torch.dtype):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_k1(gen, shape, dtype) -> float:
+    """K1 against its plain version on 0.3-randn operands (batch element 1
+    at 50 randn in BOUNDARY_SHAPE), within KERNEL_TOLERANCE[dtype]; exits
+    on a disagreement.  Returns the max abs error."""
+    dev = gen.device
+    atol, rtol = KERNEL_TOLERANCE[dtype]
+    t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
+               for _ in range(3))
+    if shape == BOUNDARY_SHAPE:
+        for x in (t, p, g):
+            x[1] = 50 * torch.randn(shape[1:], generator=gen, device=dev)
+    t, p, g = t.to(dtype), p.to(dtype), g.to(dtype)
+    with torch.no_grad():
+        out = nonlocal_attention(t, p, g)
+        torch.cuda.synchronize()
+        ref = nonlocal_attention_reference(t, p, g)
+        torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    # the largest |out - ref| - rtol * |ref|, held against atol
+    excess = (diff - rtol * ref.float().abs()).max().item()
+    ok = bool(torch.isfinite(out).all()) and excess <= atol
+    print(f"{shape} {str(dtype):15s} max_abs_err {err:.3e}, mean |ref| "
+          f"{ref.float().abs().mean().item():.3e}, max(err - {rtol:.3g}"
+          f"|ref|) {excess:.3e} (atol {atol:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"K1 disagrees with its plain version at {shape}")
+    return err
+
+
+def time_k1(gen, shape, with_lse: bool, iters: int = 20):
+    """K1 (bf16, 0.3 randn) timed in turns with flash SDPA at the same
+    head dim (`iters` calls a turn), and the plain version; prints them
+    with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms, bound_by)."""
+    b, n, d = shape
+    dev = gen.device
+    t, p, g = ((0.3 * torch.randn(b, n, d, generator=gen, device=dev)
+                ).to(torch.bfloat16) for _ in range(3))
+    # yardstick only: the port never calls it.  [B, 1, N, D] (one head),
+    # with the flash backend forced, so the run fails rather than time the
+    # unfused math fallback
+    t4, p4, g4 = t[:, None], p[:, None], g[:, None]
+    with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        turns = alternate_ms({
+            "kernel": lambda: _launch_fwd(t, p, g, with_lse=with_lse),
+            "flash": lambda: F.scaled_dot_product_attention(
+                t4, p4, g4, scale=1.0)}, iters=iters)
+        plain_ms = cuda_ms(lambda: nonlocal_attention_reference(t, p, g))
+        dev_k1 = device_ms(lambda: _launch_fwd(t, p, g, with_lse=with_lse))
+        dev_sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            t4, p4, g4, scale=1.0))
+        sdpa = F.scaled_dot_product_attention(t4, p4, g4, scale=1.0)[:, 0]
+        sdpa_err = (sdpa.float() - nonlocal_attention_reference(
+            t, p, g).float()).abs().max().item()
+    k1_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
+    bound_ms, bound_by = attention_bound_ms(b, n, d, torch.bfloat16)
+    tflops = 4.0 * b * n * n * d / k1_ms / 1e9
+    print(f"({b},{n},{d}) bf16{' with the logsumexp' if with_lse else ''}"
+          f": kernel {k1_ms:.4f} ms ({tflops:.0f} TFLOP/s, "
+          f"{100 * bound_ms / k1_ms:.1f}% of the bound {bound_ms:.4f} ms,"
+          f" {bound_by}), plain {plain_ms:.4f} ms, flash sdpa "
+          f"{sdpa_ms:.4f} ms (max_abs_err vs plain {sdpa_err:.3e}); "
+          f"kernel / flash {k1_ms / sdpa_ms:.2f} (medians; by turn "
+          f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
+          f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])}); "
+          f"device time per call (profiler): kernel {dev_k1:.4f} ms ("
+          + (f"{100 * bound_ms / dev_k1:.1f}% of the bound"
+             if dev_k1 > 0 else "no device events") +
+          f"), flash {dev_sdpa:.4f} ms", flush=True)
+    return k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by
 
 
 def golden_weights() -> dict:
@@ -286,61 +423,11 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     for shape, dtype in ATTN_CASES:
-        atol, rtol = KERNEL_TOLERANCE[dtype]
-        t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
-                   for _ in range(3))
-        if shape == BOUNDARY_SHAPE:
-            for x in (t, p, g):
-                x[1] = 50 * torch.randn(shape[1:], generator=gen, device=dev)
-        t, p, g = t.to(dtype), p.to(dtype), g.to(dtype)
-        with torch.no_grad():
-            out = nonlocal_attention(t, p, g)
-            torch.cuda.synchronize()
-            ref = nonlocal_attention_reference(t, p, g)
-            torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        # the largest |out - ref| - rtol * |ref|, held against atol
-        excess = (diff - rtol * ref.float().abs()).max().item()
-        ok = bool(torch.isfinite(out).all()) and excess <= atol
-        print(f"{shape} {str(dtype):15s} max_abs_err {err:.3e}, mean |ref| "
-              f"{ref.float().abs().mean().item():.3e}, max(err - {rtol:.3g}"
-              f"|ref|) {excess:.3e} (atol {atol:g}) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at {shape}")
+        err = check_k1(gen, shape, dtype)
         if shape != BOUNDARY_SHAPE:   # 50 randn values: not a unit-scale error
             max_err = max(max_err, err)
-    timed = {}
-    for (b, n, d), with_lse in K1_TIMED:
-        t, p, g = ((0.3 * torch.randn(b, n, d, generator=gen, device=dev)
-                    ).to(torch.bfloat16) for _ in range(3))
-        # yardstick only: the port never calls it.  [B, 1, N, D] (one
-        # head), with the flash backend forced, so the run fails rather
-        # than time the unfused math fallback
-        t4, p4, g4 = t[:, None], p[:, None], g[:, None]
-        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            turns = alternate_ms({
-                "kernel": lambda: _launch_fwd(t, p, g, with_lse=with_lse),
-                "flash": lambda: F.scaled_dot_product_attention(
-                    t4, p4, g4, scale=1.0)})
-            plain_ms = cuda_ms(lambda: nonlocal_attention_reference(t, p, g))
-            sdpa = F.scaled_dot_product_attention(t4, p4, g4, scale=1.0)[:, 0]
-            sdpa_err = (sdpa.float() - nonlocal_attention_reference(
-                t, p, g).float()).abs().max().item()
-        k1_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
-        bound_ms, bound_by = attention_bound_ms(b, n, d, torch.bfloat16)
-        timed[(b, n, d)] = (k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by)
-        tflops = 4.0 * b * n * n * d / k1_ms / 1e9
-        print(f"({b},{n},{d}) bf16{' with the logsumexp' if with_lse else ''}"
-              f": kernel {k1_ms:.4f} ms ({tflops:.0f} TFLOP/s, "
-              f"{100 * bound_ms / k1_ms:.1f}% of the bound {bound_ms:.4f} ms,"
-              f" {bound_by}), plain {plain_ms:.4f} ms, flash sdpa "
-              f"{sdpa_ms:.4f} ms (max_abs_err vs plain {sdpa_err:.3e}); "
-              f"kernel / flash {k1_ms / sdpa_ms:.2f} (medians; by turn "
-              f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
-              f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])})",
-              flush=True)
+    timed = {(b, n, d): time_k1(gen, (b, n, d), with_lse)
+             for (b, n, d), with_lse in K1_TIMED}
     k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by = timed[K1_TIMED[0][0]]
 
     phase("4 golden forward at 256 px (TF-reference e2e_eval.npz)")
@@ -577,9 +664,15 @@ def main() -> int:
     phase("9 the card's f32 train step against the CPU's")
     card_vs_cpu_step(dev)
 
-    phase("10 kernels")
+    phase("10 eval: the evaluation path")
+    with tempfile.TemporaryDirectory() as work:
+        eval_launches, eval_err = eval_path(dev, sd, smi, work)
+    max_err = max(max_err, eval_err)
+
+    phase("11 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
-          f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}")
+          f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
+          f"{sum(eval_launches.values())}")
     print(json.dumps({"kernels": [{
         "name": "nonlocal_attn_fwd",
         "route": "cuda",
@@ -609,6 +702,307 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and matrix products in true f32 inside, the
+    process's settings restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def synthetic_ucb_tree(root: str, n_images: int = UCB_IMAGES,
+                       per_id: int = 3, seed: int = 0) -> str:
+    """A UCB test tree under `root` from the sfw_gsc_synth frames and
+    landmarks: `input/<id>/<n>.png|.npy` (the frame with a darkened
+    rectangle, the shadow), `gt/<id>/<n>.png` (the frame) and the 7
+    part-mask directories of `<id>_<n>-result.png` (UCB_PARTS, each moved
+    by up to 6 px).  Returns root."""
+    rng = np.random.default_rng(seed)
+    frames = TF_REF / "sfw_gsc_synth" / "vid0"
+    for i in range(n_images):
+        ident, n = f"id{i // per_id}", str(i)
+        frame = read_png(str(frames / f"{i}.png"))
+        shadow = frame.astype(np.float32)
+        r0, c0 = rng.integers(60, 120, 2)
+        shadow[r0:r0 + 60, c0:c0 + 70] *= rng.uniform(0.35, 0.6)
+        for sub, img in (("input", np.rint(shadow).astype(np.uint8)),
+                         ("gt", frame)):
+            os.makedirs(os.path.join(root, sub, ident), exist_ok=True)
+            write_png(os.path.join(root, sub, ident, f"{n}.png"), img)
+        np.save(os.path.join(root, "input", ident, f"{n}.npy"),
+                np.load(frames / f"{i}.npy"))
+        for key, ((a, b), (c, e)) in UCB_PARTS.items():
+            dy, dx = rng.integers(-6, 7, 2)
+            m = np.zeros((256, 256, 3), np.uint8)
+            m[a + dy:b + dy, c + dx:e + dx] = 255
+            d = os.path.join(root, UCBEvaluator.PART_DIRS[key])
+            os.makedirs(d, exist_ok=True)
+            write_png(os.path.join(d, f"{ident}_{n}-result.png"), m)
+    return root
+
+
+def eval_path(dev, sd: dict, smi: str, work: str):
+    """Phase 10: every evaluator on the card through Dataset -> run, at 256
+    px, n_res=6, with the TF-golden weights, K1 launches counted per path.
+    TF32 as PyTorch ships it (cuDNN on, matmul off), off inside the f32
+    forwards only.  Returns ({path: K1 launches}, K1's largest max abs
+    error at the evaluation batches)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+
+    # --- SFW-GSC against e2e_sfw_gsc.npz (tests/test_tf_ref_e2e.py:186-189);
+    # the maps rasterized on the card (the host rasterizer takes ~1 s a
+    # view at 256 px; the CPU tests run the preset's host maps)
+    golden = np.load(TF_REF / "e2e_sfw_gsc.npz")
+    kw = dict(variant="gsc", device_geometry=True,
+              data_dirs_test=(str(TF_REF / "sfw_gsc_synth" / "*"),))
+    batch, box, name = next(iter(Dataset(
+        get_config("sfw", **kw), "test", dset="sfw")))
+    for label, overrides in (("f32", dict(compute_dtype="float32")),
+                             ("bf16 folded", dict(compute_dtype="bfloat16",
+                                                  fold_bn=True))):
+        cfg = get_config("sfw", checkpoint_dir=os.path.join(work, "sfw"),
+                         **kw, **overrides)
+        ev = SFWEvaluator(cfg, sd, device=dev)
+        nonlocal_attention.launches = 0
+        with no_tf32() if label == "f32" else contextlib.nullcontext():
+            r = ev.run_one(batch, box, "sfwgsc0")
+        launches[f"sfw {label}"] = nonlocal_attention.launches
+        d_auc = abs(r["auc"] - float(golden["sfw_gsc_auc"]))
+        d_psnr = abs(r["psnr"] - float(golden["sfw_gsc_psnr"]))
+        d_ssim = abs(r["ssim"] - float(golden["sfw_gsc_ssim"]))
+        mask_db = psnr(r["mask_pred"], golden["sfw_gsc_mask_pred"])
+        print(f"SFW-GSC {label}: AUC {r['auc']:.6f} (dAUC {d_auc:.2e}), PSNR "
+              f"{r['psnr']:.4f} (d {d_psnr:.2e}), SSIM {r['ssim']:.6f} (d "
+              f"{d_ssim:.2e}), mask_pred {mask_db:.2f} dB vs the TF "
+              f"reference; K1 launches {launches[f'sfw {label}']}",
+              flush=True)
+        if label == "f32" and not (d_auc <= 1e-3 and d_psnr <= 0.05
+                                   and d_ssim <= 0.005 and mask_db >= 40.0):
+            raise SystemExit("SFW-GSC f32 misses the TF-reference bars")
+        del ev
+
+    # --- SFW video against e2e_video.npz (tests/test_tf_ref_e2e.py:237-279)
+    import scipy.io
+
+    golden = np.load(TF_REF / "e2e_video.npz")
+    cfg = get_config("sfw_video", variant="gsc", compute_dtype="float32",
+                     device_geometry=True,
+                     data_dirs_test=(str(TF_REF / "sfw_video_synth" / "*"),),
+                     checkpoint_dir=os.path.join(work, "video"))
+    batch, box, name = next(iter(Dataset(cfg, "test", dset="sfw")))
+    bbox_dir = os.path.join(work, "bbox")
+    nonlocal_attention.launches = 0
+    with no_tf32():
+        r = SFWVideoEvaluator(cfg, sd, device=dev).run_one(
+            batch, box, name, export_bbox_dir=bbox_dir)
+    launches["video"] = nonlocal_attention.launches
+    pred_db = psnr(r["pred"], golden["vid_pred"])
+    mask_db = psnr(r["mask_pred"] * 2.0, golden["vid_mask_pred2"])
+    parts = name.replace("\\", "/").split("/")
+    mat = scipy.io.loadmat(os.path.join(bbox_dir,
+                                        f"{parts[-2]}_{parts[-1]}.mat"))
+    box_ok = np.array_equal(np.asarray(mat["bbox"]).reshape(4),
+                            golden["vid_box"])
+    print(f"SFW video: pred {pred_db:.2f} dB, mask {mask_db:.2f} dB over "
+          f"{r['pred'].shape[0]} frames, .mat box {'equal' if box_ok else 'DIFFERENT'}"
+          f"; K1 launches {launches['video']}", flush=True)
+    if not (pred_db >= 45.0 and mask_db >= 28.0 and box_ok):
+        raise SystemExit("SFW video misses the TF-reference bars")
+
+    # --- in-the-wild on the e2e_eval.npz maps (A7)
+    golden = np.load(GOLDEN)
+    batch = {k: golden[f"ffhq_{src}"].astype(np.float32)[None]
+             for k, src in (("img", "input"), ("uv", "uv"), ("face", "face"))}
+    cfg = get_config(compute_dtype="float32", eval_views=1,
+                     device_geometry=False,
+                     checkpoint_dir=os.path.join(work, "wild"))
+    nonlocal_attention.launches = 0
+    with no_tf32():
+        r = InTheWildEvaluator(cfg, sd, device=dev).run_one(
+            batch, np.zeros(4, np.float32), "02165")
+    launches["in-the-wild"] = nonlocal_attention.launches
+    wild_db = psnr(r["pred"], golden["ffhq_pred"])
+    print(f"in-the-wild: pred {wild_db:.2f} dB vs the TF reference; K1 "
+          f"launches {launches['in-the-wild']}", flush=True)
+    if not wild_db >= 45.0:
+        raise SystemExit(f"in-the-wild: {wild_db:.2f} dB")
+
+    # --- UCB on a synthetic tree, host-orchestrated and fused k=8
+    root = synthetic_ucb_tree(os.path.join(work, "ucb"))
+    kw = dict(data_dirs_test=(os.path.join(root, "input", "*"),),
+              part_mask_root=root, device_geometry=True)
+    fused_f32 = None
+    for label, overrides in (("bf16 folded", dict(compute_dtype="bfloat16",
+                                                  fold_bn=True)),
+                             ("f32", dict(compute_dtype="float32"))):
+        cfg = get_config("ucb", checkpoint_dir=os.path.join(work, label),
+                         **kw, **overrides)
+        ev = UCBEvaluator(cfg, sd, device=dev)
+        scope = no_tf32 if label == "f32" else contextlib.nullcontext
+        with scope(), contextlib.redirect_stdout(io.StringIO()):
+            nonlocal_attention.launches = 0
+            host = ev.run(Dataset(cfg, "test"), root, fused=False)
+            launches[f"ucb host {label}"] = nonlocal_attention.launches
+            nonlocal_attention.launches = 0
+            t0 = time.perf_counter()
+            fused = ev.run(Dataset(cfg, "test"), root,
+                           images_per_call=UCB_PER_CALL)
+            cold_s = time.perf_counter() - t0
+            launches[f"ucb fused {label}"] = nonlocal_attention.launches
+            t0 = time.perf_counter()
+            ev.run(Dataset(cfg, "test"), root, images_per_call=UCB_PER_CALL)
+            warm_s = time.perf_counter() - t0
+            iters = max(ev.label_iterations)
+        differ = [int((h["detected"][..., 0] != f["detected"][..., 0]).sum())
+                  for h, f in zip(host, fused)]
+        d_psnr = max(abs(h["psnr"] - f["psnr"]) for h, f in zip(host, fused))
+        d_ssim = max(abs(h["ssim"] - f["ssim"]) for h, f in zip(host, fused))
+        print(f"UCB {label}, {UCB_IMAGES} images x {cfg.eval_views} views "
+              f"at {cfg.img_size} px: host-orchestrated vs fused k="
+              f"{UCB_PER_CALL}: detected pixels that differ per image "
+              f"{differ}, max |dPSNR| {d_psnr:.2e} dB, max |dSSIM| "
+              f"{d_ssim:.2e}; mean PSNR "
+              f"{np.mean([f['psnr'] for f in fused]):.3f} dB, SSIM "
+              f"{np.mean([f['ssim'] for f in fused]):.4f}, detected "
+              f"{100 * np.mean([f['detected'].mean() for f in fused]):.1f}% "
+              f"of pixels; K1 launches host {launches[f'ucb host {label}']},"
+              f" fused {launches[f'ucb fused {label}']}", flush=True)
+        print(f"UCB {label}: fused k={UCB_PER_CALL} run, host parsing "
+              f"included: cold {cold_s:.2f} s, warm {warm_s:.2f} s = "
+              f"{UCB_IMAGES / warm_s:.2f} images/s ({smi}); label "
+              f"propagation took at most {iters} iterations a pass",
+              flush=True)
+        # in f32 the two paths compute the same function up to summation
+        # order; in bf16 the generator's rounding follows the batch (10
+        # views a call against 80, so other cuDNN algorithms), and a map
+        # value within rounding of a threshold moves a pixel: record only
+        if label == "f32" and not (max(differ) == 0 and d_psnr <= 0.01
+                                   and d_ssim <= 1e-4):
+            raise SystemExit(f"UCB {label}: fused and host paths disagree")
+        ucb_split(ev, cfg, root, label)
+        if label == "f32":
+            fused_f32 = fused
+        del ev
+
+    # the card's fused f32 masks against the port's on the CPU (f32, the
+    # same weights).  An eval forward is per view, so the anchor's outputs
+    # do not depend on the reference views: the CPU runs the anchor alone
+    cfg = get_config("ucb", checkpoint_dir=os.path.join(work, "cpu"),
+                     compute_dtype="float32", eval_views=1, **kw)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = UCBEvaluator(cfg, sd, device="cpu").run(
+            Dataset(cfg, "test"), root, images_per_call=UCB_PER_CALL)
+    differ = [int((c["detected"][..., 0] != f["detected"][..., 0]).sum())
+              for c, f in zip(cpu, fused_f32)]
+    d_psnr = max(abs(c["psnr"] - f["psnr"]) for c, f in zip(cpu, fused_f32))
+    print(f"UCB f32, card vs CPU: detected pixels that differ per image "
+          f"{differ} of {256 * 256} (bar 0.1%), max |dPSNR| {d_psnr:.2e} dB",
+          flush=True)
+    if max(differ) > 0.001 * 256 * 256:
+        raise SystemExit("UCB: the card's detected masks disagree with the "
+                         "CPU's")
+    # SSIM runs in f32 whatever TF32 allows: the card's against the CPU's on
+    # one composite pair, with cuDNN's TF32 on
+    a, b = (torch.from_numpy(fused_f32[i]["pred"]) for i in (0, 1))
+    on_card = float(ssim_fn(a[None].to(dev), b[None].to(dev))[0])
+    on_cpu = float(ssim_fn(a[None], b[None])[0])
+    print(f"SSIM with TF32 allowed: card {on_card:.7f}, CPU {on_cpu:.7f}, "
+          f"|d| {abs(on_card - on_cpu):.2e}", flush=True)
+    if not abs(on_card - on_cpu) <= 1e-5:
+        raise SystemExit("SSIM on the card is not f32")
+
+    # --- K1 at the evaluation batches
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = max(check_k1(gen, shape, dtype) for shape, dtype in EVAL_ATTN_CASES)
+    for shape in EVAL_K1_TIMED:
+        # a call at B=10 is shorter than its launch through the wrapper:
+        # 200 a turn, and the profiler's device time beside the events'
+        time_k1(gen, shape, False, iters=200)
+    print("K1 launches on the evaluation path: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    for path, n in launches.items():
+        per_call = {"ucb host": UCB_IMAGES, "ucb fused": -(-UCB_IMAGES //
+                                                           UCB_PER_CALL)}
+        forwards = next((v for k, v in per_call.items()
+                         if path.startswith(k)), 1)
+        if n != ATTN_CALLS_PER_FORWARD * forwards:
+            raise SystemExit(f"eval path {path}: {n} K1 launches, expected "
+                             f"{ATTN_CALLS_PER_FORWARD * forwards}")
+    return launches, err
+
+
+def ucb_split(ev, cfg, root: str, label: str) -> None:
+    """The device side of one fused k=8 pass, by CUDA events (3 calls after
+    1): the geometry maps and the generator on the k*V views, the resizes
+    into the crop boxes, the post-processing with the components, the
+    metrics, and the whole step."""
+    ds = Dataset(cfg, "test")
+    params = PostprocessParams()
+    s = cfg.img_size
+    jbs, sizes, pis = [], [], []
+    for step, (batch, box, name) in zip(range(UCB_PER_CALL), ds):
+        parts = ev._load_part_masks(root, step, sample_name=name)
+        size = int(min(box[3] - box[1], s))
+        pis.append(prep_part_inputs(ev._resized_parts(parts, size), params))
+        jbs.append(ev._ingress(batch, to_device=False))
+        sizes.append(size)
+    _, stacked, sizes, pi = ev._stack_chunk([], jbs, sizes, pis, UCB_PER_CALL)
+    batch = {k: ev._tensor(v) for k, v in stacked.items()}
+    size_t, pi = ev._tensor(sizes), pi.to(ev.device)
+    k, v = batch["img"].shape[:2]
+    views = {key: t.reshape((k * v,) + t.shape[2:])
+             for key, t in batch.items() if key != "gt"}
+    step_fn = build_fused_ucb_batch_step(ev._fused_fwd(), params, s)
+    scope = no_tf32 if label == "f32" else contextlib.nullcontext
+    with scope(), torch.inference_mode():
+        geo = [views[key] for key in ("lm", "face_pts", "uv_tris",
+                                      "face_tris", "reg_tris")]
+        t = {"device geometry maps": cuda_ms(
+            lambda: device_geometry_maps(*geo, s), iters=3, warmup=1)}
+        maps = device_geometry_maps(*geo, s)
+        img = views["img"].float()
+        t["generator"] = cuda_ms(lambda: ev.gen(img, maps["uv"]), iters=3,
+                                 warmup=1)
+        outs = ev.gen(img, maps["uv"])
+        alone = ev.gen(img[:v], maps["uv"][:v])
+        batch_dep = max((a.float() - b[:v].float()).abs().max().item()
+                        for a, b in zip(alone, outs))
+        rgb, mp = (o.reshape((k, v) + o.shape[1:])[:, 0].float()
+                   for o in outs[1::2])
+        a = dynamic_resize_matrix(size_t, s)
+        img0 = batch["img"][:, 0].float()
+        t["resizes into the crop boxes"] = cuda_ms(
+            lambda: [resize_into_box(x, a) for x in
+                     (batch["gt"][:, 0].float(), img0, rgb, mp)],
+            iters=3, warmup=1)
+        tmp, mpr = resize_into_box(img0, a), resize_into_box(mp, a)
+        t["post-processing with the components"] = cuda_ms(
+            lambda: fused_postprocess(mpr, tmp, pi, params), iters=3,
+            warmup=1)
+        t["metrics (PSNR, SSIM)"] = cuda_ms(
+            lambda: (psnr_fn(tmp, tmp * 0.9), ssim_fn(tmp, tmp * 0.9)),
+            iters=3, warmup=1)
+        whole = cuda_ms(lambda: step_fn(batch, size_t, pi), iters=3,
+                        warmup=1)
+    print(f"UCB {label}: one fused pass of {k} images x {v} views, device "
+          f"side (ms): " + ", ".join(f"{name} {ms:.2f}"
+                                     for name, ms in t.items())
+          + f"; the whole step {whole:.2f}, of which the rest (ingress "
+          f"dequantize, composite, egress casts, host syncs) "
+          f"{whole - sum(t.values()):.2f}; the first image's {v} views "
+          f"through the generator alone against inside the pass: max |diff| "
+          f"{batch_dep:.3e}", flush=True)
 
 
 # (library, label, name substrings of its bf16 kernels, how many): the

@@ -176,5 +176,7 @@ def test_config_rejects_unported_options():
     # tone curve
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         get_config("train", device_darken=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        get_config("ucb")
+    # the SFW presets default to the TSM variant, as in the JAX package
+    for preset in ("sfw", "sfw_video"):
+        with pytest.raises(NotImplementedError, match="ROADMAP D1"):
+            get_config(preset)
