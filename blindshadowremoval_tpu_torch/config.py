@@ -1,5 +1,6 @@
-"""Configuration of the ported paths: GSC serving, the GSC GAN train step
-and GSC evaluation (UCB, SFW, SFW video, in-the-wild).
+"""Configuration of the ported paths: serving, the GAN train step and
+evaluation (UCB, SFW, SFW video, in-the-wild) of the three generator
+variants (gsc, tsm, rgb).
 
 Port of `blindshadowremoval_tpu/config.py`, cut to the fields those paths
 read.  Options whose code paths are not ported yet raise
@@ -17,32 +18,30 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 _PRESETS = {
-    # in-the-wild single-image inference, the serving path
+    # in-the-wild single-image inference
     "in_the_wild": dict(mode="in_the_wild"),
-    # UCB eval with part-mask post-processing; the evaluation presets ship
-    # host-rasterized maps, as the JAX package's evaluators do by default
-    "ucb": dict(mode="ucb", part_mask_root=".", device_geometry=False),
-    # SFW shadow-segmentation eval and SFW per-frame video removal.  Both
-    # default to the TSM variant, as in the JAX package, so they raise
-    # (ROADMAP D1) unless the caller asks for variant="gsc"
-    "sfw": dict(mode="sfw", variant="tsm", device_geometry=False),
-    "sfw_video": dict(mode="sfw_video", variant="tsm",
-                      device_geometry=False),
-    # GAN training; the train pipeline ships host-rasterized maps unless
-    # asked otherwise, as in the JAX package
-    "train": dict(mode="train", device_geometry=False),
+    # UCB eval with part-mask post-processing
+    "ucb": dict(mode="ucb", part_mask_root="."),
+    # SFW shadow-segmentation eval and SFW per-frame video removal, on the
+    # TSM variant, as in the JAX package
+    "sfw": dict(mode="sfw", variant="tsm"),
+    "sfw_video": dict(mode="sfw_video", variant="tsm"),
+    # GAN training
+    "train": dict(mode="train"),
 }
+
+VARIANTS = ("gsc", "tsm", "rgb")
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Hyper-parameters of the ported paths (defaults as in the JAX
-    package's `Config`, except the serving wires marked below, which the
-    JAX package keeps on `ShadowRemovalService` with these same defaults)."""
+    package's `Config`; `compact_output`, which the JAX package keeps on
+    `ShadowRemovalService`, has the service's default)."""
 
     img_size: int = 256                # IMG_SIZE (train_test_GSC.py:31)
     n_res: int = 6                     # ResBottleneck count in the generator
-    variant: str = "gsc"               # only 'gsc' is ported
+    variant: str = "gsc"               # 'gsc' | 'tsm' | 'rgb'
     compute_dtype: str = "bfloat16"    # activations / conv dtype
     fold_bn: bool = False              # fold eval BatchNorm into the convs
     egress_dtype: str = "float32"      # dtype of the generator's outputs
@@ -64,11 +63,14 @@ class Config:
     n_layer_d: int = 4                 # discriminator depth
     vgg_dtype: str = "bfloat16"        # perceptual-backbone compute dtype
     remat: bool = False                # recompute ResBottlenecks in backward
-    # serving wires (eval/serving.py); device_geometry also selects the
-    # train step's geometry branch (a batch with "lm" rasterizes in-step)
-    device_geometry: bool = True       # rasterize UV/offset/face maps on
-                                       # the device from landmarks
-    compact_output: bool = False       # uint8 pred + f16 mask_pred egress
+    # wires; the service takes device_geometry as a field of its own
+    # (default on), as in the JAX package
+    device_geometry: bool = False      # the test datasets ship landmarks and
+                                       # topologies, and the evaluators
+                                       # rasterize UV/offset/face maps on
+                                       # the device (the train step branches
+                                       # on the batch: "lm" rasterizes)
+    compact_output: bool = False       # serving: uint8 pred + f16 mask_pred
     compact_ingress: bool = False      # uint16 fixed-point image ingress
     # not ported: must stay at their defaults
     device_darken: bool = False        # ROADMAP C1 (the tone curve)
@@ -79,12 +81,9 @@ class Config:
     s2d_convs: bool = False            # ROADMAP F4
 
     def __post_init__(self):
-        if self.variant != "gsc":
-            item = {"tsm": "D1", "rgb": "D2"}.get(self.variant)
-            if item is None:
-                raise ValueError(f"unknown variant {self.variant!r}")
-            raise NotImplementedError(
-                f"variant {self.variant!r} is not ported yet (ROADMAP {item})")
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r}; choose "
+                             f"from {VARIANTS}")
         if self.device_darken:
             raise NotImplementedError(
                 "device_darken is not ported: it needs the tone curve "

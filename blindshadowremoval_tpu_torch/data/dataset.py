@@ -13,11 +13,12 @@ File-layout contracts, as in the JAX package:
   * SFW: `<frame>.png` + `<frame>.npy` + `<frame>_label.png`
     (+ `<frame>_label_cmap.png`); video mode and the GSC variant's SFW
     protocol pick 10 temporally spread frames with the reference's
-    frame-offset schedule (dataset.py:808-867).
+    frame-offset schedule (dataset.py:808-867); the other variants' SFW
+    sample is the frame and its mirrored twin;
+  * UCB under variant="tsm": the anchor and its mirrored twin
+    (`parse_test_ucb_mirror`).
 
-Not ported: the train parser and iterator (ROADMAP C5) and the TSM
-variant's parsers, `parse_test_sfw` for variant="tsm" and
-`parse_test_ucb_mirror` (ROADMAP D1).
+Not ported: the train parser and iterator (ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -238,9 +239,19 @@ class Dataset:
         return self._parse_test_multiview(
             lm_path, _imread_rgb(self._ucb_gt_path(lm_path)))
 
-    def parse_test_ucb_mirror(self, lm_path: str):
-        raise NotImplementedError(
-            "the TSM variant's UCB parser is not ported yet (ROADMAP D1)")
+    def _mirror_geometry(self, lm_mirror: np.ndarray) -> dict:
+        cfg = self.config
+        return _geometry_primitives(lm_mirror) if cfg.device_geometry else \
+            _geometry(lm_mirror, cfg.img_size)
+
+    def parse_test_ucb_mirror(self, lm_path: str) -> tuple[dict, np.ndarray]:
+        """The TSM variant's UCB sample (dataset.py:320-338): the anchor and
+        its mirrored twin with mirrored geometry, gt riding the flip."""
+        gt = _imread_rgb(self._ucb_gt_path(lm_path))
+        v, box, lm_mirror = self._test_view(lm_path, gt)
+        view_m = {"img": v["img"][:, ::-1], "gt": v["gt"][:, ::-1],
+                  **self._mirror_geometry(lm_mirror)}
+        return _stack_views([v, view_m]), np.asarray(box, np.float32)
 
     @staticmethod
     def _ucb_gt_path(lm_path: str) -> str:
@@ -256,12 +267,24 @@ class Dataset:
             lm_path, _imread_rgb(lm_path.rsplit(".", 1)[0] + ".png"))
 
     def parse_test_sfw(self, label_path: str) -> tuple[dict, np.ndarray]:
-        """The GSC variant's SFW sample (_parse_test_sfw_gsc); the TSM
-        variant's frame + mirrored twin is not ported."""
-        if self.config.variant != "gsc":
-            raise NotImplementedError(
-                "the TSM variant's SFW parser is not ported yet (ROADMAP D1)")
-        return self._parse_test_sfw_gsc(label_path)
+        """One SFW frame and its mirrored twin, with the cmap and the label
+        mask (dataset.py:353-383); the GSC variant has its own 10-frame
+        protocol (_parse_test_sfw_gsc)."""
+        if self.config.variant == "gsc":
+            return self._parse_test_sfw_gsc(label_path)
+        stem = label_path[:-len("_label.png")]
+        # the cmap rides the label's stem: <frame>_label_cmap.png
+        cmap = _imread_rgb(label_path[:-len(".png")] + "_cmap.png")
+        label = _imread_gray_raw(label_path)
+        extra = np.concatenate([cmap, label], axis=2)
+        v, box, lm_mirror = self._test_view(stem + ".npy", None, extra)
+        view_m = {"img": v["img"][:, ::-1], "extra": v["extra"][:, ::-1],
+                  **self._mirror_geometry(lm_mirror)}
+        batch = _stack_views([v, view_m])
+        batch["cmap"] = batch["extra"][..., :3]
+        batch["label"] = batch["extra"][..., 3:4]
+        del batch["extra"]
+        return batch, np.asarray(box, np.float32)
 
     @staticmethod
     def _available_frames(folder: str) -> tuple[int, int]:
@@ -360,6 +383,9 @@ class Dataset:
             elif self.dset == "sfw":
                 yield (*self.parse_test_sfw(name), name)
             elif self.config.mode == "ucb":
-                yield (*self.parse_test_ucb(name), name)
+                parse = (self.parse_test_ucb_mirror
+                         if self.config.variant == "tsm"
+                         else self.parse_test_ucb)
+                yield (*parse(name), name)
             else:
                 yield (*self.parse_test_ffhq(name), name)

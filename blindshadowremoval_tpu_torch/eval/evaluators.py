@@ -1,5 +1,6 @@
 """Evaluation harnesses: in-the-wild, UCB (PSNR/SSIM), SFW (AUC), SFW video
-(port of `blindshadowremoval_tpu/eval/evaluators.py`, GSC variant).
+(port of `blindshadowremoval_tpu/eval/evaluators.py`), for the gsc, tsm
+and rgb generator variants.
 
 Re-design of the reference's eval loops (train_test_GSC.py:360-932):
 
@@ -8,7 +9,9 @@ Re-design of the reference's eval loops (train_test_GSC.py:360-932):
   * `UCBEvaluator`        - test(): forward with 10 reference views, resize
     the anchor prediction into the original crop box, run the heuristic
     post-processor (eval/postprocess.py, or on the device eval/fused.py),
-    composite, report PSNR/SSIM;
+    composite, report PSNR/SSIM; the TSM variant's protocol (anchor + mirror,
+    frame=1, heuristics at full resolution, `run_one_tsm`) and the RGB
+    ablation's simple face-mask composite (`run_one_simple`) beside it;
   * `SFWEvaluator`        - testsfw: shadow-mask PSNR/SSIM + pixel ROC-AUC
     against `*_label.png` (label==2 is the shadow class,
     train_test_GSC.py:820);
@@ -18,9 +21,9 @@ Re-design of the reference's eval loops (train_test_GSC.py:360-932):
 Each builds the port's generator from a `state_dict` (models/weights.py
 makes one from JAX variables or TF-named arrays) on `device`: CUDA unless
 the caller passes "cpu", and never the CPU on its own.  Forwards run under
-`torch.inference_mode`; the metrics run on the same device.  Not ported:
-the TSM protocol (`run_one_tsm`, ROADMAP D1) and the RGB ablation's simple
-composite (`run_one_simple`, ROADMAP D2).
+`torch.inference_mode`; the metrics run on the same device.  Every variant
+gives the GSC 4-tuple (gs, rgb, mask22, dif): RGB's single output is
+wrapped as (gray, out, 0, gray - gray(img)).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from blindshadowremoval_tpu_torch.eval.fused import (
     prep_part_inputs,
 )
 from blindshadowremoval_tpu_torch.eval.postprocess import (
+    TSM_PARAMS,
     PostprocessParams,
     composite,
     ucb_postprocess,
@@ -51,7 +55,7 @@ from blindshadowremoval_tpu_torch.geometry.triangulation import (
 )
 from blindshadowremoval_tpu_torch.models import build_generator
 from blindshadowremoval_tpu_torch.ops.auc import roc_auc_with_sentinels
-from blindshadowremoval_tpu_torch.ops.image import dequantize
+from blindshadowremoval_tpu_torch.ops.image import dequantize, rgb_to_grayscale
 from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
 from blindshadowremoval_tpu_torch.ops.image import ssim as ssim_fn
 from blindshadowremoval_tpu_torch.utils.imageio import imread, resize_linear
@@ -91,31 +95,57 @@ class Evaluator:
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _gen_views(self, views: dict) -> tuple:
+    def _apply_gen(self, img, uv, reg, frame: int, share: bool) -> tuple:
+        """The variant's forward as the GSC 4-tuple (evaluators.py:76-89):
+        TSM takes the offset maps, `frame` and `share`; RGB's output is
+        wrapped as (gray, out, 0, gray - gray(img))."""
+        variant = self.config.variant
+        if variant == "tsm":
+            return self.gen(img, uv, reg, frame=frame, share=share)
+        out = self.gen(img, uv)
+        if variant == "rgb":
+            gray = rgb_to_grayscale(out)
+            return gray, out, torch.zeros_like(out), \
+                gray - rgb_to_grayscale(img)
+        return out
+
+    def _gen_views(self, views: dict, frame: int = 1,
+                   share: bool = True) -> tuple:
         """Generator 4-tuple and face map of device views [B, S, S, C]:
         geometry rasterized on the device under config.device_geometry,
-        the host-rasterized maps otherwise (no face map then; the GSC
-        forward reads no offset map, model.py:221)."""
+        the host-rasterized maps otherwise (no face map then; only the TSM
+        forward reads the offset maps, model.py:221)."""
         img = dequantize(views["img"])
         if self._devgeo:
             maps = device_geometry_maps(
                 *(views[k] for k in _GEOMETRY_KEYS), self.config.img_size)
-            return self.gen(img, maps["uv"], maps["reg"]), maps["face"]
-        return self.gen(img, dequantize(views["uv"])), None
+            return self._apply_gen(img, maps["uv"], maps["reg"], frame,
+                                   share), maps["face"]
+        return self._apply_gen(img, dequantize(views["uv"]), views.get("reg"),
+                               frame, share), None
 
     def metrics(self, gt: np.ndarray, out: np.ndarray) -> tuple[float, float]:
         """(SSIM, PSNR) of a single [H,W,C] pair, on the device."""
         a, b = self._tensor(gt)[None].float(), self._tensor(out)[None].float()
         return float(ssim_fn(a, b)[0]), float(psnr_fn(a, b)[0])
 
+    def _view_keys(self) -> tuple:
+        """The batch keys the forward reads."""
+        if self._devgeo:
+            return ("img",) + _GEOMETRY_KEYS
+        return ("img", "uv") + (("reg",) if self.config.variant == "tsm"
+                                else ())
+
     @torch.inference_mode()
-    def forward(self, batch: dict) -> tuple:
+    def forward(self, batch: dict, frame: int = 1, share: bool = True) -> tuple:
         """batch: dict of [V,S,S,C] views.  Returns (gs, rgb, mask22, dif,
         face) as numpy arrays; `dif` is the shadow-probability map
         `mask_pred`, `face` the soft face region (from the batch, or
-        rasterized on the device under config.device_geometry)."""
-        keys = ("img",) + (_GEOMETRY_KEYS if self._devgeo else ("uv",))
-        out, face = self._gen_views({k: self._tensor(batch[k]) for k in keys})
+        rasterized on the device under config.device_geometry).  `frame`
+        and `share` reach the TSM ShareLayer only."""
+        out, face = self._gen_views(
+            {k: self._tensor(batch[k]) for k in self._view_keys()}, frame,
+            share)
         face = _host(face) if face is not None else np.asarray(batch["face"])
         return tuple(_host(o) for o in out) + (face,)
 
@@ -190,16 +220,35 @@ class UCBEvaluator(Evaluator):
                 for k, v in parts.items()}
 
     def _fused_fwd(self):
-        """The 4-tuple forward the fused step wraps, on flattened views."""
+        """The 4-tuple forward the fused step wraps, on flattened views
+        (frame=1: TSM forwards anchor and mirror as groups of one)."""
         return lambda views: self._gen_views(views)[0]
+
+    @property
+    def _is_tsm(self) -> bool:
+        return self.config.variant == "tsm"
+
+    def _protocol(self, params: Optional[PostprocessParams]):
+        """(params, protocol) of the variant's fused UCB step: the TSM
+        protocol runs the heuristics at full resolution with TSM_PARAMS by
+        default (evaluators.py:294-303)."""
+        if params is None:
+            params = TSM_PARAMS if self._is_tsm else PostprocessParams()
+        return params, "tsm" if self._is_tsm else "gsc"
+
+    def _part_inputs(self, parts: dict, size: int, params) -> PartInputs:
+        """The TSM protocol takes the unresized part masks; the others
+        resize them into the crop box."""
+        return prep_part_inputs(
+            parts if self._is_tsm else self._resized_parts(parts, size),
+            params)
 
     def _ingress(self, batch: dict, to_device: bool = True) -> dict:
         """Host->device payload for the fused step: only the keys it reads
-        (the GSC forward ignores `reg`, and the part-mask face replaces
+        (`reg` only for TSM with host maps, and the part-mask face replaces
         `face`); under `config.compact_ingress` the [0,1] planes go as
         uint16 fixed point, dequantized on the device."""
-        needed = {"img", "gt"} | (set(_GEOMETRY_KEYS) if self._devgeo
-                                  else {"uv"})
+        needed = {"gt", *self._view_keys()}
         out = {}
         for k, v in batch.items():
             if k not in needed:
@@ -218,7 +267,8 @@ class UCBEvaluator(Evaluator):
         pred = np.asarray(out_u8, np.float32) / 255.0
         detected = np.repeat(np.asarray(kept, np.float32), 3, axis=2)
         mp = np.repeat(np.asarray(mp_u8, np.float32) / 255.0, 3, axis=2)
-        tmp = _pad_to(_resize_np(img0, size), s)
+        # TSM shows the unresized input: its composite ran at full size
+        tmp = img0 if self._is_tsm else _pad_to(_resize_np(img0, size), s)
         gt_sc = _pad_to(_resize_np(gt0, size), s)
         self.logger.save_result_image(
             [tmp[None], pred[None], mp[None] * 2, gt_sc[None],
@@ -234,9 +284,10 @@ class UCBEvaluator(Evaluator):
         (eval/fused.py)."""
         s = self.config.img_size
         size = int(min(box[3] - box[1], s))
-        params = PostprocessParams() if params is None else params
-        pi = prep_part_inputs(self._resized_parts(parts, size), params)
-        step = build_fused_ucb_step(self._fused_fwd(), params, s)
+        params, protocol = self._protocol(params)
+        pi = self._part_inputs(parts, size, params)
+        step = build_fused_ucb_step(self._fused_fwd(), params, s,
+                                    protocol)
         kept, out_u8, mp_u8, psnr, ssim = step(
             self._ingress(batch), float(size), pi.to(self.device))
         pred, detected = self._panels(
@@ -282,10 +333,11 @@ class UCBEvaluator(Evaluator):
         each pass's label-propagation iterations in
         `self.label_iterations`."""
         s = self.config.img_size
-        params = PostprocessParams() if params is None else params
+        params, protocol = self._protocol(params)
         k = images_per_call
         self.label_iterations = []
-        step_fn = build_fused_ucb_batch_step(self._fused_fwd(), params, s)
+        step_fn = build_fused_ucb_batch_step(self._fused_fwd(), params,
+                                             s, protocol)
 
         def chunks():
             metas, jbs, sizes, pis = [], [], [], []
@@ -294,8 +346,7 @@ class UCBEvaluator(Evaluator):
                     part_mask_root, step,
                     sample_name=name if key_masks_by_name else None)
                 size = int(min(box[3] - box[1], s))
-                pis.append(prep_part_inputs(
-                    self._resized_parts(parts, size), params))
+                pis.append(self._part_inputs(parts, size, params))
                 metas.append((step, name, size,
                               np.asarray(batch["img"][0]),
                               np.asarray(batch["gt"][0])))
@@ -317,13 +368,49 @@ class UCBEvaluator(Evaluator):
                                     len(dataset.name_list))
         return results
 
-    def run_one_simple(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the RGB ablation's UCB protocol is not ported yet (ROADMAP D2)")
+    def run_one_simple(self, batch: dict, box: np.ndarray, name: str,
+                       parts: dict):
+        """The RGB ablation's protocol (train_RGB_test.py:403-505): no
+        heuristic detection; the raw prediction (not clipped before the
+        resize) is composited through the rounded face(+hair) part mask and
+        clipped after, then scored against the box-resized gt."""
+        s = self.config.img_size
+        size = int(min(box[3] - box[1], s))
+        _, rgb, _, _, _ = self.forward(batch)
+        gt_sc = _pad_to(_resize_np(batch["gt"][0], size), s)
+        tmp = _pad_to(_resize_np(batch["img"][0], size), s)
+        pred = _pad_to(_resize_np(rgb[0], size), s)
+        mask = _pad_to(np.round(_resize_np(parts["face_hair"], size)), s)
+        out = np.clip(pred * mask + tmp * (1.0 - mask), 0.0, 1.0)
+        ssim, psnr = self.metrics(gt_sc, out)
+        self.logger.save_result_image([tmp[None], out[None], gt_sc[None]],
+                                      name)
+        return {"ssim": ssim, "psnr": psnr, "pred": out, "detected": mask}
 
-    def run_one_tsm(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the TSM variant's UCB protocol is not ported yet (ROADMAP D1)")
+    def run_one_tsm(self, batch: dict, box: np.ndarray, name: str,
+                    parts: dict, params: PostprocessParams = TSM_PARAMS):
+        """The TSM variant's protocol (train_with_TSM.py:369-617): anchor +
+        mirror forwarded with frame=1; the heuristics run at full size
+        against the unresized part masks; the raw prediction is composited
+        at full size and clipped, then resized into the box and padded."""
+        s = self.config.img_size
+        size = int(min(box[3] - box[1], s))
+        _, rgb, _, mask_pred, _ = self.forward(batch, frame=1)
+        gt_sc = _pad_to(_resize_np(batch["gt"][0], size), s)
+        tmp = batch["img"][0]
+        mp = mask_pred[0]
+        mp = np.repeat(mp, 3, axis=2) if mp.shape[2] == 1 else mp
+        detected, mp_gated = ucb_postprocess(
+            mp, tmp, parts["face_hair"], parts["face_no_hair"],
+            parts["mouth"], parts["nose"], parts["eyebrow"], parts["eye"],
+            parts["glasses"], params, device=self.device)
+        out = np.clip(rgb[0] * detected + tmp * (1.0 - detected), 0.0, 1.0)
+        out = _pad_to(_resize_np(out, size), s)
+        ssim, psnr = self.metrics(gt_sc, out)
+        self.logger.save_result_image(
+            [tmp[None], out[None], mp_gated[None] * 2, gt_sc[None],
+             detected[None]], name)
+        return {"ssim": ssim, "psnr": psnr, "pred": out, "detected": detected}
 
     def run_one(self, batch: dict, box: np.ndarray, name: str, parts: dict,
                 params: PostprocessParams = PostprocessParams()):
@@ -359,22 +446,40 @@ class UCBEvaluator(Evaluator):
     def run(self, dataset, part_mask_root: str,
             params: Optional[PostprocessParams] = None,
             fused: Optional[bool] = None, key_masks_by_name: bool = True,
-            images_per_call: int = 1):
+            rgb_heuristics: bool = False, images_per_call: int = 1):
         """fused=None selects the fused path (run_one_fused; the same
-        detected masks as the host-orchestrated run_one).  Part masks pair
-        by file name by default and raise on a missing mask;
+        detected masks as the host-orchestrated run_one, or run_one_tsm for
+        the TSM variant).  variant="rgb" runs the simple face-mask
+        composite (run_one_simple) unless rgb_heuristics=True opts into the
+        heuristic pipeline on its grayscale-difference map.  params=None
+        takes the variant's constants (TSM_PARAMS for tsm).  Part masks
+        pair by file name by default and raise on a missing mask;
         key_masks_by_name=False restores the reference's positional
         pairing.  images_per_call > 1 runs the fused path k images a pass
         (run_fused_batched)."""
+        simple = self.config.variant == "rgb" and not rgb_heuristics
         if images_per_call > 1:
-            if fused is False:
-                raise ValueError("images_per_call > 1 requires the fused path")
+            if simple or fused is False:
+                raise ValueError(
+                    "images_per_call > 1 requires the fused path (gsc/tsm "
+                    "protocols, or rgb with rgb_heuristics=True)")
             return self.run_fused_batched(
                 dataset, part_mask_root, params=params,
                 images_per_call=images_per_call,
                 key_masks_by_name=key_masks_by_name)
-        params = PostprocessParams() if params is None else params
-        runner = self.run_one if fused is False else self.run_one_fused
+        if simple:
+            if params is not None:
+                raise ValueError(
+                    "params has no effect on the RGB simple-composite "
+                    "protocol; pass rgb_heuristics=True to run the "
+                    "heuristic pipeline with custom params")
+
+            def runner(batch, box, name, parts, params):
+                return self.run_one_simple(batch, box, name, parts)
+        else:
+            params = self._protocol(params)[0]
+            host = self.run_one_tsm if self._is_tsm else self.run_one
+            runner = host if fused is False else self.run_one_fused
 
         def items():
             for step, (batch, box, name) in enumerate(dataset):
@@ -396,8 +501,10 @@ class UCBEvaluator(Evaluator):
 class SFWEvaluator(Evaluator):
     """testsfw (train_test_GSC.py:798-838): shadow segmentation metrics."""
 
-    def run_one(self, batch: dict, box: np.ndarray, name: str):
-        _, rgb, _, mask_pred, face = self.forward(batch)
+    def run_one(self, batch: dict, box: np.ndarray, name: str,
+                frame: int = 2, share: bool = True):
+        """frame=2: the TSM variant's sample is the frame and its mirror."""
+        _, rgb, _, mask_pred, face = self.forward(batch, frame, share)
         mask_pred = mask_pred * face
         rgb = np.clip(rgb, 0.0, 1.0)
 
@@ -429,7 +536,8 @@ class SFWVideoEvaluator(Evaluator):
 
     def run_one(self, batch: dict, box: np.ndarray, name: str,
                 export_bbox_dir: Optional[str] = None):
-        _, rgb, _, mask_pred, face = self.forward(batch)
+        # the 10 frames are one TSM group
+        _, rgb, _, mask_pred, face = self.forward(batch, frame=10)
         mask_pred = mask_pred * face
         rgb = np.clip(rgb, 0.0, 1.0)
         figs = [batch["img"][:1], rgb[:1], mask_pred[:1] * 2]

@@ -38,20 +38,22 @@ from blindshadowremoval_tpu_torch.ops.image import dequantize
 
 @dataclasses.dataclass
 class ShadowRemovalService:
-    """Batched inference over the GSC generator.
+    """Batched inference over the config's generator variant (gsc, tsm
+    with frame=1 and the ShareLayer on, or rgb, whose shadow map is zeros).
 
-    The wires come from the config: `device_geometry` rasterizes the UV,
-    offset and face maps on the device from landmarks and Delaunay
-    topologies (the host ships only those); `compact_ingress` sends the
-    cropped [0,1] image (and the UV map in host-maps mode) as uint16 fixed
-    point, dequantized on the device; `compact_output` returns uint8
-    predictions and f16 shadow maps.  `state_dict` holds unfolded weights
-    (see `models/build_generator`)."""
+    `device_geometry` (on by default, as in the JAX package) rasterizes the
+    UV, offset and face maps on the device from landmarks and Delaunay
+    topologies (the host ships only those).  From the config:
+    `compact_ingress` sends the cropped [0,1] image (and the UV map in
+    host-maps mode) as uint16 fixed point, dequantized on the device;
+    `compact_output` returns uint8 predictions and f16 shadow maps.
+    `state_dict` holds unfolded weights (see `models/build_generator`)."""
 
     config: Config
     state_dict: Any = None
     batch_size: int = 64
     device: Any = None
+    device_geometry: bool = True
 
     def __post_init__(self):
         cfg = self.config
@@ -60,7 +62,7 @@ class ShadowRemovalService:
         # snapshot the wires: the call paths below read these, even if a
         # caller replaces the config afterwards
         self._compact = cfg.compact_output
-        self._devgeo = cfg.device_geometry
+        self._devgeo = self.device_geometry
         self._compact_in = cfg.compact_ingress
 
     # ----------------------------------------------------------- pipeline
@@ -121,7 +123,15 @@ class ShadowRemovalService:
             uv, reg, face = maps["uv"], maps["reg"], maps["face"]
         else:
             (img, uv, reg), face = staged, None
-        _, rgb, _, dif = self.gen(dequantize(img), dequantize(uv), reg)
+        img, uv = dequantize(img), dequantize(uv)
+        variant = self.config.variant
+        if variant == "rgb":
+            rgb = self.gen(img, uv)
+            dif = rgb[..., :1] * 0
+        else:
+            out = (self.gen(img, uv, reg, frame=1, share=True)
+                   if variant == "tsm" else self.gen(img, uv))
+            _, rgb, _, dif = out
         rgb = rgb.clamp(0.0, 1.0)
         if face is not None:
             dif = dif * face

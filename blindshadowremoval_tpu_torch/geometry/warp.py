@@ -1,5 +1,5 @@
-"""Bilinear resize with TF semantics (port of
-`blindshadowremoval_tpu/geometry/warp.py:resize_bilinear`).
+"""Bilinear resize with TF semantics, and dense bilinear warping (port of
+`blindshadowremoval_tpu/geometry/warp.py`).
 
 `tf.image.resize(bilinear)`, which the reference uses everywhere, samples
 at half-pixel centres with edge clamping and does not blur on downsample.
@@ -8,6 +8,13 @@ interpolation matrices (out = A_h . x . A_w^T): the taps are placed in
 float64 on the host, the weights are float32, and the matrix is cast to the
 input's dtype.  Its backward is two more products, which the gradient loss
 runs at five scales.
+
+A warp (`batch_map_offsets`, the TSM ShareLayer's) samples at clamped
+coordinates with a four-corner gather: channel 0 of a normalized offset
+field is the row delta, channel 1 the column delta, in fractions of the
+side.  The gathers index a flattened [B, H*W, C] (`torch.gather`); their
+backward is a scatter-add, atomic on the card, so a warp's input gradient
+varies from run to run there within f32 rounding.
 """
 
 from __future__ import annotations
@@ -75,3 +82,51 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     y = torch.matmul(a_h, xb).reshape(-1, oh, w, c)          # [b, O, w, c]
     y = torch.matmul(a_w, y)                                  # [b, O, P, c]
     return y.reshape(*lead, oh, ow, c)
+
+
+def _bilinear_gather(x: torch.Tensor, rows: torch.Tensor,
+                     cols: torch.Tensor) -> torch.Tensor:
+    """Sample x [B,H,W,C] at fractional (rows, cols) [B,N] -> [B,N,C]
+    (warp.py:76-107): the coordinates are clamped first and the corners
+    are floor/ceil of the clamped values, so an integer coordinate samples
+    exactly.  The lerp weights keep the coordinates' dtype."""
+    b, h, w, c = x.shape
+    rows = rows.clamp(0.0, h - 1.0)
+    cols = cols.clamp(0.0, w - 1.0)
+    r0, c0 = rows.floor(), cols.floor()
+    r1, c1 = rows.ceil(), cols.ceil()
+    fr = (rows - r0)[..., None]
+    fc = (cols - c0)[..., None]
+    flat = x.reshape(b, h * w, c)
+
+    def take(ri, ci):
+        idx = (ri.long() * w + ci.long())[..., None].expand(-1, -1, c)
+        return torch.gather(flat, 1, idx)
+
+    v00, v01 = take(r0, c0), take(r0, c1)
+    v10, v11 = take(r1, c0), take(r1, c1)
+    top = v00 + (v10 - v00) * fr
+    bot = v01 + (v11 - v01) * fr
+    return top + (bot - top) * fc
+
+
+def batch_map_coordinates(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample x [B,H,W,C] at absolute coords [B,N,2] (row, col)
+    -> [B,N,C] (warp.py:110-117)."""
+    return _bilinear_gather(x, coords[..., 0], coords[..., 1])
+
+
+def batch_map_offsets(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Warp x [B,S,S,C] by a normalized offset field [B,s,s,>=2] ->
+    [B,S,S,C] (warp.py:120-141): the field is resized to S (bilinear, TF
+    semantics), scaled by S and added to the identity grid; only its first
+    two channels are read."""
+    b, s = x.shape[:2]
+    off = offsets[..., :2]
+    if off.shape[1:3] != (s, s):
+        off = resize_bilinear(off, (s, s))
+    off = off * s
+    grid = torch.arange(s, dtype=torch.float32, device=x.device)
+    rows = (off[..., 0] + grid[:, None]).reshape(b, s * s)
+    cols = (off[..., 1] + grid[None, :]).reshape(b, s * s)
+    return _bilinear_gather(x, rows, cols).reshape(b, s, s, x.shape[-1])

@@ -1,4 +1,5 @@
-"""Models of the port: the GSC generator, its discriminators and VGG."""
+"""Models of the port: the GSC, TSM and RGB generators, the discriminators
+and VGG."""
 
 from __future__ import annotations
 
@@ -7,6 +8,10 @@ import torch
 from blindshadowremoval_tpu_torch.config import Config, resolve_device
 from blindshadowremoval_tpu_torch.models.folding import fold_batch_norm
 from blindshadowremoval_tpu_torch.models.generator import GSCGenerator
+from blindshadowremoval_tpu_torch.models.generator_rgb import RGBGenerator
+from blindshadowremoval_tpu_torch.models.generator_tsm import TSMGenerator
+
+GENERATORS = {"gsc": GSCGenerator, "tsm": TSMGenerator, "rgb": RGBGenerator}
 
 
 def _glorot_init(model: torch.nn.Module, seed: int) -> None:
@@ -20,10 +25,18 @@ def _glorot_init(model: torch.nn.Module, seed: int) -> None:
                 torch.nn.init.zeros_(mod.bias)
 
 
+def new_generator(config: Config) -> torch.nn.Module:
+    """An untrained generator of `config.variant` (f32 parameters, on the
+    CPU), computing in the config's compute dtype."""
+    return GENERATORS[config.variant](
+        n_res=config.n_res, egress_dtype=config.torch_egress_dtype,
+        dtype=config.torch_compute_dtype, remat=config.remat)
+
+
 def build_generator(config: Config, state_dict: dict | None = None,
                     device: str | torch.device | None = None,
-                    seed: int = 0) -> GSCGenerator:
-    """The GSC generator of `config` in eval mode, on `device` (CUDA unless
+                    seed: int = 0) -> torch.nn.Module:
+    """The generator of `config.variant` in eval mode, on `device` (CUDA unless
     the caller passes "cpu"), computing in the config's compute dtype, with
     its BatchNorms folded when `config.fold_bn` is set.
 
@@ -34,10 +47,7 @@ def build_generator(config: Config, state_dict: dict | None = None,
     weights are stored in the compute dtype (folded in f32 first), which
     spares every serving call the casts."""
     dev = resolve_device(device)
-    model = GSCGenerator(n_res=config.n_res,
-                         egress_dtype=config.torch_egress_dtype,
-                         dtype=config.torch_compute_dtype,
-                         remat=config.remat)
+    model = new_generator(config)
     if state_dict is None:
         _glorot_init(model, seed)
     else:

@@ -11,6 +11,9 @@
             bottleneck features; 3 more ResBottlenecks; 3 up-convs; 3 convs
             conditioned on `gs` give the recoloured output.
 
+The TSM variant (models/generator_tsm.py) is this network with a
+ShareLayer's output concatenated at both bottleneck concats.
+
 Inputs and outputs are NHWC, as in the JAX package: forward(inputs
 [B,H,W,3], uv [B,H,W,3]) -> (gs [B,H,W,1], con_rgb [B,H,W,3], mask22
 [B,H,W,3], dif [B,H,W,1]) in `egress_dtype`.  Activations run in `dtype`
@@ -50,6 +53,10 @@ RES_CH = N_CH[5] + 1    # 257: the bottleneck width
 class GSCGenerator(nn.Module):
     """Two-stage grayscale-then-RGB deshadowing generator."""
 
+    # channels a ShareLayer adds at each bottleneck concat, per feature
+    # channel (none here; 2 in the TSM variant: its max and its mean)
+    SHARE_WIDTH = 0
+
     def __init__(self, n_res: int = 6, fold_bn: bool = False,
                  egress_dtype: torch.dtype = torch.float32,
                  dtype: torch.dtype = torch.float32, remat: bool = False):
@@ -62,16 +69,19 @@ class GSCGenerator(nn.Module):
         self.down1 = ConvBlock(N_CH[0], N_CH[1], stride=2, **fb)
         self.down2 = ConvBlock(N_CH[1], N_CH[2], stride=2, **fb)
         self.down3 = ConvBlock(N_CH[2], N_CH[3], stride=2, **fb)
-        # res0's input: 96 features + 3 UV; later blocks of each half keep
-        # the wider of their input and 257 (channel-pad residual)
-        shared_in = N_CH[3] + 3
-        rgb_in = max(shared_in, RES_CH) + 1 + 3      # x_hole ∥ bmask ∥ uv
-        half = n_res // 2
-        ins = ([shared_in] + [max(shared_in, RES_CH)] * (half - 1)
-               + [rgb_in] + [max(rgb_in, RES_CH)] * (n_res - half - 1))
-        self.res = nn.ModuleList(ResBottleneck(c, RES_CH, **fb) for c in ins)
+        # res0's input: 96 features (+ their shared statistics) + 3 UV;
+        # later blocks of each half keep the wider of their input and 257
+        # (channel-pad residual).  The RGB half's input: the gated features
+        # (+ their shared statistics) + bmask + UV
+        k = 1 + self.SHARE_WIDTH
+        shared_in = N_CH[3] * k + 3
         shared_out = max(shared_in, RES_CH)
+        rgb_in = shared_out * k + 1 + 3
         rgb_out = max(rgb_in, RES_CH)
+        half = n_res // 2
+        ins = ([shared_in] + [shared_out] * (half - 1)
+               + [rgb_in] + [rgb_out] * (n_res - half - 1))
+        self.res = nn.ModuleList(ResBottleneck(c, RES_CH, **fb) for c in ins)
         self.up1 = ConvTBlock(shared_out, N_CH[3], **fb)
         self.up2 = ConvTBlock(N_CH[3] + N_CH[2], N_CH[2], **fb)
         self.up3 = ConvTBlock(N_CH[2] + N_CH[1], N_CH[1], **fb)
@@ -89,6 +99,15 @@ class GSCGenerator(nn.Module):
     def forward(self, inputs: torch.Tensor, uv: torch.Tensor,
                 reg: torch.Tensor | None = None):
         del reg   # accepted for API parity; the GSC variant has no ShareLayer
+        return self._run(inputs, uv, lambda x: ())
+
+    def _run(self, inputs: torch.Tensor, uv: torch.Tensor, shared):
+        """The forward, with `shared(x)` giving the tensors concatenated
+        after the bottleneck features x at both concats (none for GSC)."""
+        with f32_convs(self.dtype):
+            return self._layers(inputs, uv, shared)
+
+    def _layers(self, inputs: torch.Tensor, uv: torch.Tensor, shared):
         dtype = self.dtype
         x = inputs.permute(0, 3, 1, 2).to(dtype)          # NCHW
 
@@ -102,10 +121,10 @@ class GSCGenerator(nn.Module):
         # ---- bottleneck with UV conditioning ------------------------
         uv_small = resize_bilinear_nchw(uv.permute(0, 3, 1, 2).to(dtype),
                                         (h, w))
-        x = torch.cat([x, uv_small], dim=1)
+        x = torch.cat([x, *shared(x), uv_small], dim=1)
         half = self.n_res // 2
         for blk in self.res[:half]:
-            x = self._res(blk, x)
+            x = run_res(blk, x, self.remat and self.training)
 
         # ---- grayscale head -----------------------------------------
         y = self.up1(x)
@@ -125,9 +144,10 @@ class GSCGenerator(nn.Module):
         # no gradient flows through it (generator.py:123-125)
         bmask = (resize_bilinear_nchw(dif.detach().float(), (h, w))
                  > 0.1).to(dtype)
-        x = torch.cat([x * (1.0 - bmask), bmask, uv_small], dim=1)
+        x_hole = x * (1.0 - bmask)
+        x = torch.cat([x_hole, bmask, *shared(x_hole), uv_small], dim=1)
         for blk in self.res[half:]:
-            x = self._res(blk, x)
+            x = run_res(blk, x, self.remat and self.training)
         f = self.clr_up1(x)
         f = self.clr_up2(f)
         f = self.clr_up3(f)
@@ -136,19 +156,38 @@ class GSCGenerator(nn.Module):
         con_rgb = self.clr_conv3(con_rgb)
 
         et = self.egress_dtype
-
-        def nhwc(t):
-            return t.permute(0, 2, 3, 1)
-
         con_rgb = nhwc(con_rgb).to(et)
         dif_out = rgb_to_grayscale(con_rgb) - rgb_to_grayscale(inputs.to(et))
         return (nhwc(gs).to(et), con_rgb, nhwc(mask22).to(et), dif_out)
 
-    def _res(self, blk: ResBottleneck, x: torch.Tensor) -> torch.Tensor:
-        if not (self.remat and self.training and torch.is_grad_enabled()):
-            return blk(x)
-        # the recompute in backward sees the same input, so the same batch
-        # statistics, and must not move the running statistics again
-        return checkpoint(blk, x, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(),
-                                              frozen_stats(blk)))
+
+@contextlib.contextmanager
+def f32_convs(dtype: torch.dtype):
+    """Inside, an f32-compute forward's convolutions run in true f32:
+    PyTorch lets cuDNN use TF32 by default, whose 10-bit mantissa moves an
+    f32 forward off the TF-reference goldens (PERF.md, P2).  cuDNN's
+    setting is restored after; other compute dtypes leave it alone."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    if dtype == torch.float32:
+        cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+def run_res(blk: ResBottleneck, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """One ResBottleneck, recomputed in the backward pass under `remat`
+    (a training forward with autograd on)."""
+    if not (remat and torch.is_grad_enabled()):
+        return blk(x)
+    # the recompute in backward sees the same input, so the same batch
+    # statistics, and must not move the running statistics again
+    return checkpoint(blk, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_stats(blk)))

@@ -8,8 +8,9 @@ Two sources, both plain numpy, so neither needs JAX or TensorFlow:
     discriminator trio and VGG-19, so tests start both packages from one
     JAX initialization.
   * `load_tf_weights`: a `{tf_name: array}` dict in the reference's TF
-    checkpoint naming, through the gsc name mapping (a port of
-    `blindshadowremoval_tpu/models/tf_checkpoint.py:generator_mapping`).
+    checkpoint naming, through the name mapping of a generator variant (a
+    port of `blindshadowremoval_tpu/models/tf_checkpoint.py:
+    generator_mapping`).
     `synthetic_tf_weights` makes such a dict deterministically from a seed,
     value for value as the JAX package's function does, so the TF-reference
     goldens in tests/goldens/tf_ref/ can be reproduced without JAX.
@@ -83,9 +84,10 @@ def block_from_jax(params: dict, stats: dict, kind: str,
 
 
 def from_jax_variables(tree: Any) -> dict[str, torch.Tensor]:
-    """JAX GSCGenerator variables (numpy leaves; `{params, batch_stats}`
-    or folded `{params}`) -> a state_dict of the port's GSCGenerator (built
-    with `fold_bn=True` for a folded tree)."""
+    """JAX generator variables of any variant (numpy leaves;
+    `{params, batch_stats}` or folded `{params}`) -> a state_dict of the
+    port's generator of that variant (built with `fold_bn=True` for a
+    folded tree)."""
     params = tree["params"]
     stats = tree.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
@@ -144,26 +146,42 @@ def _conv_entries(torch_prefix: str, tf_prefix: str, has_bn: bool):
     return entries
 
 
-def generator_mapping(n_res: int = 6):
-    """[(torch_name, tf_name, channel_slice)] for the gsc generator.
+def generator_mapping(variant: str = "gsc", n_res: int = 6):
+    """[(torch_name, tf_name, channel_slice)] for a generator variant
+    (tf_checkpoint.py:117-176).
 
     `channel_slice` = (start, stop) lands the TF tensor in an output-channel
-    slice of the torch tensor: the reference's conv2/conv3 heads (two 7x7
-    convs to one channel each) are the fused 2-channel `head` conv here.
+    slice of the torch tensor: the reference's gsc/tsm conv2/conv3 heads
+    (two 7x7 convs to one channel each) are the fused 2-channel `head` conv
+    here.  "tsm" has the gsc names (its ShareLayer has no weights and only
+    widens res0, res3, up1 and clr_up1); "rgb" has no clr_* layers, its
+    conv2/conv3 are sequential 3-channel convs, and only res_stack
+    0..n_res//2-1 exist.
     """
+    if variant not in ("gsc", "tsm", "rgb"):
+        raise ValueError(f"unknown generator variant {variant!r}")
+    rgb = variant == "rgb"
     entries = _conv_entries("conv1", "generator/conv1", True)
-    for i, tf_layer in enumerate(("conv2", "conv3")):
-        for leaf, tname in (("kernel", "weight"), ("bias", "bias")):
-            entries.append((f"head.conv.{tname}",
-                            f"generator/{tf_layer}/conv/{leaf}", (i, i + 1)))
+    if rgb:
+        entries += _conv_entries("conv2", "generator/conv2", False)
+        entries += _conv_entries("conv3", "generator/conv3", False)
+    else:
+        for i, tf_layer in enumerate(("conv2", "conv3")):
+            for leaf, tname in (("kernel", "weight"), ("bias", "bias")):
+                entries.append((f"head.conv.{tname}",
+                                f"generator/{tf_layer}/conv/{leaf}",
+                                (i, i + 1)))
     for i in (1, 2, 3):
         entries += _conv_entries(f"down{i}", f"generator/down{i}", True)
         entries += _conv_entries(f"up{i}", f"generator/up{i}", True)
-        entries += _conv_entries(f"clr_up{i}", f"generator/clr_up{i}", True)
-    entries += _conv_entries("clr_conv1", "generator/clr_conv1", True)
-    entries += _conv_entries("clr_conv2", "generator/clr_conv2", True)
-    entries += _conv_entries("clr_conv3", "generator/clr_conv3", False)
-    for i in range(n_res):
+        if not rgb:
+            entries += _conv_entries(f"clr_up{i}", f"generator/clr_up{i}",
+                                     True)
+    if not rgb:
+        entries += _conv_entries("clr_conv1", "generator/clr_conv1", True)
+        entries += _conv_entries("clr_conv2", "generator/clr_conv2", True)
+        entries += _conv_entries("clr_conv3", "generator/clr_conv3", False)
+    for i in range(n_res // 2 if rgb else n_res):
         tp, tf = f"res.{i}", f"generator/res_stack/{i}"
         for j in (1, 2, 3):
             entries += [(f"{tp}.conv{j}.weight", f"{tf}/conv{j}/kernel", None),
@@ -194,7 +212,8 @@ def _to_torch_layout(value: np.ndarray) -> np.ndarray:
 
 def synthetic_tf_weights(state_dict: dict, mapping, seed: int = 0) -> dict:
     """Deterministic random {tf_name: float32 array} covering `mapping`,
-    shaped from `state_dict` (an unfolded GSCGenerator's).  Value for value
+    shaped from `state_dict` (an unfolded generator's of the mapping's
+    variant).  Value for value
     the JAX package's `tf_checkpoint.synthetic_tf_weights`: each tensor is a
     pure function of (tf_name, seed), sized so 40+ stacked conv+BN layers
     stay sane (glorot-ish kernels, near-identity BN statistics)."""

@@ -1,5 +1,6 @@
-"""The GSC GAN train step (port of `blindshadowremoval_tpu/train/trainer.py`,
-the reference's FSRNet.train_step, train_test_GSC.py:117-358).
+"""The GAN train step of the three generator variants (port of
+`blindshadowremoval_tpu/train/trainer.py`, the reference's
+FSRNet.train_step, train_test_GSC.py:117-358).
 
 One step: dequantize the batch, augment (per-pair saturation jitter, the
 shadow compositor, the mirror-consistency swap), run the generator, the
@@ -24,8 +25,14 @@ default:
   * the val pass (`train=False`) feeds the clean image, uses the running
     statistics and updates nothing.
 
+Variants: TSM forwards with frame=1 and a random ShareLayer gate in
+training (one draw a step, `share_gate`), always on in the val pass
+(train_with_TSM.py:216-221); RGB's single output `con` is the RGB
+prediction, its grayscale the `gs` of the losses, the reconstruction loss
+is recon_c alone and the mask map is zeros (train_RGB_test.py).
+
 Randomness comes from an explicit `torch.Generator` on the step's device.
-Only the GSC variant is ported (TSM: ROADMAP D1, RGB: D2).  Not ported yet
+Not ported yet
 (ROADMAP C1/C5): the tone-curve darkening wire (`device_darken`), `fit`,
 checkpoints, the train parser and the native loader.
 """
@@ -42,12 +49,11 @@ from blindshadowremoval_tpu_torch.data.synthesis import compose_shadow_image
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
     device_geometry_maps,
 )
-from blindshadowremoval_tpu_torch.models import _glorot_init
+from blindshadowremoval_tpu_torch.models import _glorot_init, new_generator
 from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
 from blindshadowremoval_tpu_torch.models.discriminator import (
     MultiScaleDiscriminators,
 )
-from blindshadowremoval_tpu_torch.models.generator import GSCGenerator
 from blindshadowremoval_tpu_torch.models.vgg import (
     VGG19Features,
     init_vgg,
@@ -77,7 +83,7 @@ class TrainState:
     """Modules and optimizers of a run; `train_step` updates it in place."""
 
     step: int
-    gen: GSCGenerator
+    gen: torch.nn.Module                  # the config's generator variant
     disc: MultiScaleDiscriminators
     vgg: VGG19Features                    # frozen
     gen_opt: torch.optim.Adam
@@ -107,9 +113,7 @@ class Trainer:
         state_dicts, else Glorot-uniform (G, D) and LeCun-normal (VGG,
         without `vgg_weights`) from `seed`."""
         cfg = self.config
-        gen = GSCGenerator(n_res=cfg.n_res,
-                           egress_dtype=cfg.torch_egress_dtype,
-                           dtype=cfg.torch_compute_dtype, remat=cfg.remat)
+        gen = new_generator(cfg)
         disc = MultiScaleDiscriminators(num_layers=cfg.n_layer_d,
                                         dtype=cfg.torch_compute_dtype)
         vgg = VGG19Features(dtype=cfg.torch_vgg_dtype)
@@ -176,6 +180,14 @@ class Trainer:
             img.shape)
         return torch.where(swap, mirrored, img)   # no host sync
 
+    def share_gate(self, gen: torch.Generator, train: bool):
+        """The TSM ShareLayer gate of one step: a 0-d bool tensor on the
+        device, True with probability 0.5 in training (no host sync), and
+        True in the val pass."""
+        if not train:
+            return True
+        return torch.rand((), generator=gen, device=self.device) > 0.5
+
     # -------------------------------------------------------------- step
     def train_step(self, state: TrainState, batch: dict,
                    generator: torch.Generator, train: bool = True):
@@ -216,14 +228,26 @@ class Trainer:
         disc.train(train)
         with torch.set_grad_enabled(train):
             # ---------------- generator loss --------------------------
-            gs, rgb, mask22, dif = gen(img, uv, reg)
+            if cfg.variant == "tsm":
+                out = gen(img, uv, reg, frame=1,
+                          share=self.share_gate(generator, train))
+            else:
+                out = gen(img, uv, reg)
+            if cfg.variant == "rgb":
+                # the single-branch ablation: a direct RGB output
+                rgb = out
+                gs = rgb_to_grayscale(rgb)
+                mask22 = torch.zeros_like(rgb)
+            else:
+                gs, rgb, mask22, _ = out
             d_in = torch.cat([torch.cat([gt, rgb], 0),
                               torch.cat([mask_sv, mask_sv], 0)], 3)
             with frozen_stats(disc):
                 d_outs = disc(d_in)
             recon_gs, recon_c = reconstruction_losses(
                 gs, rgb, gt, gray_gt, mask_bi, mask_edge)
-            recon = (recon_gs + recon_c) / 2.0
+            recon = (recon_c if cfg.variant == "rgb"
+                     else (recon_gs + recon_c) / 2.0)
             gan = -sum(fake.mean() for _, fake in d_outs)
             with torch.no_grad():
                 feats_real = vgg(preprocess(gt))

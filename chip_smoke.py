@@ -15,7 +15,11 @@ an f32 step against the same step on the CPU, drives the evaluation path
 (SFW-GSC AUC and SFW video against the TF-reference goldens, in-the-wild,
 and UCB with the heuristic post-processor, host-orchestrated and fused k
 images a pass, on a synthetic UCB tree) with K1 held and timed at the
-evaluation batches, and prints one JSON line with every kernel and, last,
+evaluation batches, drives the TSM and RGB generators through the same
+entry points (forward goldens, SFW-TSM, TSM video, TSM and RGB UCB, both
+services, both train steps) with K1 held and timed at their batches and
+K1 and K2 held on an RGB step's own operands, and prints one JSON line
+with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -68,9 +72,12 @@ from blindshadowremoval_tpu_torch.geometry.triangulation import (
     generate_uv_map,
 )
 from blindshadowremoval_tpu_torch.models import blocks as blocks_module
-from blindshadowremoval_tpu_torch.models import build_generator
+from blindshadowremoval_tpu_torch.models import GENERATORS, build_generator
+from blindshadowremoval_tpu_torch.models import generator as generator_module
+from blindshadowremoval_tpu_torch.models import (
+    generator_rgb as generator_rgb_module,
+)
 from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
-from blindshadowremoval_tpu_torch.models.generator import GSCGenerator
 from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
     generator_mapping,
@@ -219,20 +226,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50) -> float:
-    """Mean milliseconds of device kernels per call of `fn`, from
-    torch.profiler over `iters` calls: the kernels' own time, whatever the
-    host's launch rate (CUDA events between back-to-back calls measure the
-    launch rate instead when a call is shorter than its launch)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+def device_ms(fn, iters: int = 100) -> float:
+    """Mean milliseconds of device work per call of `fn`, with the calls
+    queued ahead: a spin kernel holds the stream while the host enqueues
+    all `iters` calls, and CUDA events time them back to back, whatever the
+    host's launch rate (events around calls launched as they come read the
+    launch rate when a call is shorter than its launch).  The spin doubles
+    until the host has queued every call before it ends.  (torch.profiler's
+    traces of 50 such calls held 0-47 of them late in this script.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        queued_in_time = not start.query()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / iters
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
 
 
 def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3,
@@ -320,7 +337,9 @@ def check_k1(gen, shape, dtype) -> float:
 def time_k1(gen, shape, with_lse: bool, iters: int = 20):
     """K1 (bf16, 0.3 randn) timed in turns with flash SDPA at the same
     head dim (`iters` calls a turn), and the plain version; prints them
-    with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms, bound_by)."""
+    with the bound.  Returns {ms, plain_ms, library_ms, bound_ms, bound_by,
+    device_ms, library_device_ms}: CUDA events' medians, and the device
+    time per call with the calls queued ahead (device_ms)."""
     b, n, d = shape
     dev = gen.device
     t, p, g = ((0.3 * torch.randn(b, n, d, generator=gen, device=dev)
@@ -352,19 +371,25 @@ def time_k1(gen, shape, with_lse: bool, iters: int = 20):
           f"kernel / flash {k1_ms / sdpa_ms:.2f} (medians; by turn "
           f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
           f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])}); "
-          f"device time per call (profiler): kernel {dev_k1:.4f} ms ("
-          + (f"{100 * bound_ms / dev_k1:.1f}% of the bound"
-             if dev_k1 > 0 else "no device events") +
-          f"), flash {dev_sdpa:.4f} ms", flush=True)
-    return k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by
+          f"device time per call (calls queued ahead): kernel "
+          f"{dev_k1:.4f} ms ({100 * bound_ms / dev_k1:.1f}% of the bound), "
+          f"flash {dev_sdpa:.4f} ms", flush=True)
+    return dict(ms=k1_ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_k1,
+                library_device_ms=dev_sdpa)
 
 
-def golden_weights() -> dict:
-    """The TF-golden weights: synthetic_tf_weights(seed=0) with the RGB
-    head bias lifted by 0.5, as tests/goldens/tf_ref/e2e_eval.npz was made."""
-    mapping = generator_mapping()
-    weights = synthetic_tf_weights(GSCGenerator().state_dict(), mapping, 0)
-    weights["generator/clr_conv3/conv/bias"] += 0.5
+def golden_weights(variant: str = "gsc", n_res: int = 6,
+                   head_bias: float = 0.5) -> dict:
+    """The TF-golden weights of a generator variant: synthetic_tf_weights
+    (seed=0), with the RGB head bias of gsc and tsm lifted by `head_bias`,
+    as tests/goldens/tf_ref/e2e_eval.npz was made (the *_forward.npz
+    goldens: head_bias=0)."""
+    mapping = generator_mapping(variant, n_res)
+    weights = synthetic_tf_weights(GENERATORS[variant](n_res).state_dict(),
+                                   mapping, 0)
+    if variant != "rgb":
+        weights["generator/clr_conv3/conv/bias"] += head_bias
     return load_tf_weights(weights, mapping)
 
 
@@ -428,7 +453,7 @@ def main() -> int:
             max_err = max(max_err, err)
     timed = {(b, n, d): time_k1(gen, (b, n, d), with_lse)
              for (b, n, d), with_lse in K1_TIMED}
-    k1_ms, plain_ms, sdpa_ms, bound_ms, bound_by = timed[K1_TIMED[0][0]]
+    k1 = timed[K1_TIMED[0][0]]
 
     phase("4 golden forward at 256 px (TF-reference e2e_eval.npz)")
     golden = np.load(GOLDEN)
@@ -460,8 +485,10 @@ def main() -> int:
 
     phase("5 serve: ShadowRemovalService, the main path")
     cfg = get_config(compute_dtype="bfloat16", fold_bn=True,
-                     egress_dtype="bfloat16", device_geometry=True)
+                     egress_dtype="bfloat16")
+    # the service rasterizes the maps on the device by default
     svc = ShadowRemovalService(cfg, sd, batch_size=SERVE_BATCH, device=dev)
+    assert svc.device_geometry
     images, lms = synthetic_requests(SERVE_REQUESTS)
     nonlocal_attention.launches = 0
     t0 = time.perf_counter()
@@ -669,10 +696,18 @@ def main() -> int:
         eval_launches, eval_err = eval_path(dev, sd, smi, work)
     max_err = max(max_err, eval_err)
 
-    phase("11 kernels")
+    phase("11 variants: the TSM and RGB generators on every path")
+    with tempfile.TemporaryDirectory() as work:
+        var = variants_path(dev, smi, work)
+    max_err = max(max_err, var["k1_err"])
+
+    phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
-          f"{sum(eval_launches.values())}")
+          f"{sum(eval_launches.values())}; variants "
+          + ", ".join(f"{k} {v}" for k, v in var["launches"].items()))
+    k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
+                 {**timed, **var["k1"]}.items()]
     print(json.dumps({"kernels": [{
         "name": "nonlocal_attn_fwd",
         "route": "cuda",
@@ -680,11 +715,17 @@ def main() -> int:
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:70",
         "launches": main_launches,
         "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": sdpa_ms,
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+        "launches_by_path": {"serve": main_launches, "train": k1_train,
+                             **{f"eval {k}": v
+                                for k, v in eval_launches.items()},
+                             **{k: v if isinstance(v, int) else v[0]
+                                for k, v in var["launches"].items()}},
+        "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
         "route": "cuda",
@@ -697,6 +738,14 @@ def main() -> int:
         "bound_ms": k2_bound_ms,
         "bound_by": k2_bound_by,
         "library_ms": sdpa_bwd_ms,
+        "launches_by_path": {"train": k2_train,
+                             "tsm train": var["launches"]["tsm train"][1],
+                             "rgb train": var["launches"]["rgb train"][1]},
+        "shapes": [dict(shape=list(shape), ms=rec[0], plain_ms=rec[1],
+                        library_ms=rec[2], bound_ms=rec[3], bound_by=rec[4])
+                   for shape, rec in k2_timed.items()]
+        + [dict(shape=[2 * TRAIN_BATCH, 1024, 256], path="rgb train step",
+                max_abs_err=var["k2_err"], **var["k2"])],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -717,6 +766,21 @@ def no_tf32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def without_f32_scope():
+    """The generators' f32 convolution scope taken away inside (P2's
+    readings: f32 forwards under the process's TF32 settings)."""
+    modules = (generator_module, generator_rgb_module)
+    saved = [m.f32_convs for m in modules]
+    for m in modules:
+        m.f32_convs = lambda dtype: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        for m, scope in zip(modules, saved):
+            m.f32_convs = scope
 
 
 def synthetic_ucb_tree(root: str, n_images: int = UCB_IMAGES,
@@ -927,7 +991,7 @@ def eval_path(dev, sd: dict, smi: str, work: str):
     err = max(check_k1(gen, shape, dtype) for shape, dtype in EVAL_ATTN_CASES)
     for shape in EVAL_K1_TIMED:
         # a call at B=10 is shorter than its launch through the wrapper:
-        # 200 a turn, and the profiler's device time beside the events'
+        # 200 a turn, and the device time with the calls queued ahead
         time_k1(gen, shape, False, iters=200)
     print("K1 launches on the evaluation path: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()), flush=True)
@@ -1003,6 +1067,545 @@ def ucb_split(ev, cfg, root: str, label: str) -> None:
           f"{whole - sum(t.values()):.2f}; the first image's {v} views "
           f"through the generator alone against inside the pass: max |diff| "
           f"{batch_dep:.3e}", flush=True)
+
+
+# the variants (phase 11): K1 at the batches the TSM and RGB paths give it
+# (TSM: an anchor and its mirror, 8 such pairs in a fused UCB pass; RGB at
+# D=256: an evaluation sample of 10 views, a serve batch of 64, a fused UCB
+# pass of 80), held to KERNEL_TOLERANCE and timed in turns with flash SDPA
+VARIANT_ATTN_CASES = [((2, 1024, 128), torch.bfloat16),
+                      ((2, 1024, 128), torch.float32),
+                      ((16, 1024, 128), torch.bfloat16),
+                      ((10, 1024, 256), torch.bfloat16),
+                      ((10, 1024, 256), torch.float32),
+                      ((64, 1024, 256), torch.bfloat16),
+                      ((80, 1024, 256), torch.bfloat16)]
+VARIANT_K1_TIMED = [(2, 1024, 128), (16, 1024, 128), (10, 1024, 256),
+                    (64, 1024, 256), (80, 1024, 256)]
+# NonLocal blocks a forward: one a ResBottleneck; RGB runs n_res // 2
+ATTN_CALLS = {"gsc": 6, "tsm": 6, "rgb": 3}
+OUT_NAMES = ("gs", "con_rgb", "mask22", "dif")
+# K2's kernels, by name (ptxas and the profiler)
+K2_KERNELS = ("bwd_hopper", "bwd_prep", "bwd_dq", "bwd_delta", "bwd_dkdv")
+
+
+def golden_forward_inputs(variant: str):
+    """tests/test_tf_model_parity.py's inputs at 128 px: one seeded view,
+    and for TSM a second uniform one (tools/make_tf_ref_goldens.py)."""
+    rng = np.random.default_rng(123)
+    img = rng.uniform(0.0, 1.0, (1, 128, 128, 3))
+    uv = rng.uniform(0.0, 1.0, (1, 128, 128, 3))
+    reg = rng.uniform(-0.02, 0.02, (1, 128, 128, 6))
+    if variant == "tsm":
+        rng = np.random.default_rng(124)
+        img = np.concatenate([img, rng.uniform(0, 1, img.shape)], 0)
+        uv = np.concatenate([uv, rng.uniform(0, 1, uv.shape)], 0)
+        reg = np.concatenate([reg, rng.uniform(-0.02, 0.02, reg.shape)], 0)
+    return [torch.from_numpy(a.astype(np.float32)) for a in (img, uv, reg)]
+
+
+def forward_golden(variant: str, dev, label: str) -> float:
+    """The variant's f32 forward (built by build_generator, in eval and in
+    train mode) against {variant}_forward.npz at the bars of
+    tests/test_tf_model_parity.py (a 1e-4 floor, widened by 20x the TF
+    reference's own noise).  Returns the worst error / bar."""
+    golden = np.load(TF_REF / f"{variant}_forward.npz")
+    sd = golden_weights(variant, head_bias=0.0)
+    img, uv, reg = (t.to(dev) for t in golden_forward_inputs(variant))
+    names = OUT_NAMES if variant == "tsm" else ("con",)
+    worst = 0.0
+    for mode in ("eval", "train"):
+        model = build_generator(get_config(variant=variant,
+                                           compute_dtype="float32"), sd, dev)
+        model.train(mode == "train")
+        nonlocal_attention.launches = 0
+        with torch.no_grad():
+            outs = (model(img, uv, reg, frame=2, share=True)
+                    if variant == "tsm" else (model(img, uv),))
+        launched = nonlocal_attention.launches
+        ratios = []
+        for name, out in zip(names, outs):
+            tol = max(1e-4, 20.0 * float(golden[f"{mode}_{name}_selfnoise"]))
+            err = float(np.abs(out.float().cpu().numpy()
+                               - golden[f"{mode}_{name}"]).max())
+            ratios.append(err / tol)
+            print(f"{variant}_forward.npz {mode} {label}: {name} max abs err "
+                  f"{err:.3e} (bar {tol:.3e}, {err / tol:.3f} of it)")
+        worst = max(worst, *ratios)
+        if launched != ATTN_CALLS[variant]:
+            raise SystemExit(f"{variant} forward: {launched} K1 launches")
+    return worst
+
+
+def sfw_golden(ev, batch, box, golden, prefix: str, label: str) -> dict:
+    """One SFW sample through `ev` against the TF reference's AUC, PSNR,
+    SSIM and mask_pred; returns the shares of tests/test_tf_ref_e2e.py's
+    bars (|dAUC| 1e-3, |dPSNR| 0.05, |dSSIM| 0.005, mask >= 40 dB), as
+    {metric: reading / bar}, mask as 40 / dB."""
+    nonlocal_attention.launches = 0
+    r = ev.run_one(batch, box, f"{prefix}0")
+    shares = {"auc": abs(r["auc"] - float(golden[f"{prefix}_auc"])) / 1e-3,
+              "psnr": abs(r["psnr"] - float(golden[f"{prefix}_psnr"])) / 0.05,
+              "ssim": abs(r["ssim"] - float(golden[f"{prefix}_ssim"])) / 5e-3}
+    mask_db = psnr(r["mask_pred"], golden[f"{prefix}_mask_pred"])
+    shares["mask"] = 40.0 / mask_db
+    print(f"{prefix} {label}: AUC {r['auc']:.6f}, PSNR {r['psnr']:.4f}, SSIM "
+          f"{r['ssim']:.6f}, mask_pred {mask_db:.2f} dB; shares of the bars "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + f"; K1 launches {nonlocal_attention.launches}", flush=True)
+    return shares
+
+
+def variants_path(dev, smi: str, work: str) -> dict:
+    """Phase 11: the TSM and RGB generators at 256 px, n_res=6, on every
+    entry point (forward goldens, SFW-TSM against the TF reference, TSM
+    video, TSM and RGB UCB on a synthetic tree, both services, both train
+    steps), with K1 and K2 launches counted per path, K1 held and timed at
+    the new batches and K1 and K2 held on an RGB step's own operands.  TF32
+    as PyTorch ships it (cuDNN on, matmul off), off inside the f32 checks
+    that hold a bar, and on, without the generators' f32 scope, for the P2
+    readings.  Returns {launches, k1_err,
+    k2_err, k1, k2, train}."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+
+    # --- the forward goldens: TF32 off, and with cuDNN's TF32 on, where the
+    # generators' own f32 scope (models/generator.py:f32_convs) must hold
+    # the bars; P2's readings take that scope away
+    p2 = {}
+    for variant in ("tsm", "rgb"):
+        with no_tf32():
+            off = forward_golden(variant, dev, "TF32 off")
+        on = forward_golden(variant, dev, "TF32 on, f32 scope")
+        if not max(off, on) < 1.0:
+            raise SystemExit(f"{variant}_forward.npz misses its bar")
+        with without_f32_scope():
+            p2[f"{variant}_forward"] = forward_golden(
+                variant, dev, "TF32 on, no f32 scope")
+
+    # --- SFW-TSM against e2e_eval.npz sfw_* (the sfw preset: TSM, host maps)
+    golden = np.load(GOLDEN)
+    tsm_sd, rgb_sd = golden_weights("tsm"), golden_weights("rgb")
+    cfg = get_config("sfw", compute_dtype="float32",
+                     data_dirs_test=(str(TF_REF / "sfw_synth" / "*"),),
+                     checkpoint_dir=os.path.join(work, "sfw"))
+    batch, box, _ = next(iter(Dataset(cfg, "test", dset="sfw")))
+    ev = SFWEvaluator(cfg, tsm_sd, device=dev)
+    with no_tf32():
+        shares = sfw_golden(ev, batch, box, golden, "sfw", "f32, TF32 off")
+    launches["tsm sfw"] = nonlocal_attention.launches
+    if not max(shares.values()) <= 1.0:
+        raise SystemExit("SFW-TSM f32 misses the TF-reference bars")
+    with without_f32_scope():
+        p2["sfw_tsm"] = max(sfw_golden(ev, batch, box, golden, "sfw",
+                                       "f32, TF32 on, no f32 scope").values())
+        # P2 on SFW-GSC, phase 10's sample
+        cfg = get_config("sfw", variant="gsc", compute_dtype="float32",
+                         device_geometry=True,
+                         data_dirs_test=(str(TF_REF / "sfw_gsc_synth" / "*"),),
+                         checkpoint_dir=os.path.join(work, "sfwgsc"))
+        batch, box, _ = next(iter(Dataset(cfg, "test", dset="sfw")))
+        p2["sfw_gsc"] = max(sfw_golden(
+            SFWEvaluator(cfg, golden_weights(), device=dev), batch, box,
+            np.load(TF_REF / "e2e_sfw_gsc.npz"), "sfw_gsc",
+            "f32, TF32 on, no f32 scope").values())
+    print("P2, f32 with cuDNN's TF32 on and no f32 scope: worst share of a "
+          "bar " + ", ".join(f"{k} {v:.3f}" for k, v in p2.items()),
+          flush=True)
+    del ev
+
+    # --- TSM video: the 10 frames as one group, card against the CPU
+    cfg = get_config("sfw_video", compute_dtype="float32",
+                     device_geometry=True,
+                     data_dirs_test=(str(TF_REF / "sfw_video_synth" / "*"),),
+                     checkpoint_dir=os.path.join(work, "video"))
+    batch, box, name = next(iter(Dataset(cfg, "test", dset="sfw")))
+    nonlocal_attention.launches = 0
+    with no_tf32():
+        card = SFWVideoEvaluator(cfg, tsm_sd, device=dev).run_one(
+            batch, box, name)
+    launches["tsm video"] = nonlocal_attention.launches
+    cpu = SFWVideoEvaluator(cfg, tsm_sd, device="cpu").run_one(batch, box,
+                                                                name)
+    pred_db, mask_db = (psnr(card[k], cpu[k]) for k in ("pred", "mask_pred"))
+    print(f"TSM video, {card['pred'].shape[0]} frames, frame=10: card vs CPU "
+          f"pred {pred_db:.2f} dB, mask {mask_db:.2f} dB (bar 60); K1 "
+          f"launches {launches['tsm video']}", flush=True)
+    if not (pred_db >= 60.0 and mask_db >= 60.0):
+        raise SystemExit("TSM video: the card disagrees with the CPU")
+
+    # --- TSM UCB: host-orchestrated vs fused k=8 (f32), card vs CPU
+    root = synthetic_ucb_tree(os.path.join(work, "ucb"))
+    kw = dict(compute_dtype="float32", device_geometry=True,
+              data_dirs_test=(os.path.join(root, "input", "*"),),
+              part_mask_root=root)
+    cfg = get_config("ucb", variant="tsm",
+                     checkpoint_dir=os.path.join(work, "tsm"), **kw)
+    ev = UCBEvaluator(cfg, tsm_sd, device=dev)
+    with no_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        nonlocal_attention.launches = 0
+        host = ev.run(Dataset(cfg, "test"), root, fused=False)
+        launches["tsm ucb host"] = nonlocal_attention.launches
+        nonlocal_attention.launches = 0
+        fused = ev.run(Dataset(cfg, "test"), root,
+                       images_per_call=UCB_PER_CALL)
+        launches["tsm ucb fused"] = nonlocal_attention.launches
+        t0 = time.perf_counter()
+        ev.run(Dataset(cfg, "test"), root, images_per_call=UCB_PER_CALL)
+        warm_s = time.perf_counter() - t0
+        cpu = UCBEvaluator(cfg, tsm_sd, device="cpu").run(
+            Dataset(cfg, "test"), root, images_per_call=UCB_PER_CALL)
+    differ = [int((h["detected"][..., 0] != f["detected"][..., 0]).sum())
+              for h, f in zip(host, fused)]
+    d_psnr = max(abs(h["psnr"] - f["psnr"]) for h, f in zip(host, fused))
+    d_ssim = max(abs(h["ssim"] - f["ssim"]) for h, f in zip(host, fused))
+    vs_cpu = [int((c["detected"][..., 0] != f["detected"][..., 0]).sum())
+              for c, f in zip(cpu, fused)]
+    print(f"TSM UCB f32, {UCB_IMAGES} images (anchor + mirror): host vs "
+          f"fused k={UCB_PER_CALL}: pixels that differ per image {differ}, "
+          f"max |dPSNR| {d_psnr:.2e}, max |dSSIM| {d_ssim:.2e}; card vs CPU "
+          f"{vs_cpu} of {256 * 256} (bar 0.1%); mean PSNR "
+          f"{np.mean([f['psnr'] for f in fused]):.3f} dB; warm fused run "
+          f"{warm_s:.2f} s = {UCB_IMAGES / warm_s:.2f} images/s ({smi}); K1 "
+          f"launches host {launches['tsm ucb host']}, fused "
+          f"{launches['tsm ucb fused']}", flush=True)
+    if not (max(differ) == 0 and d_psnr <= 0.01 and d_ssim <= 1e-4):
+        raise SystemExit("TSM UCB: fused and host paths disagree")
+    if max(vs_cpu) > 0.001 * 256 * 256:
+        raise SystemExit("TSM UCB: the card's masks disagree with the CPU's")
+
+    # --- RGB UCB: the simple composite, card vs CPU; the heuristics, host
+    # vs fused k=8
+    cfg = get_config("ucb", variant="rgb",
+                     checkpoint_dir=os.path.join(work, "rgb"), **kw)
+    ev = UCBEvaluator(cfg, rgb_sd, device=dev)
+    with no_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        nonlocal_attention.launches = 0
+        simple = ev.run(Dataset(cfg, "test"), root)
+        launches["rgb ucb simple"] = nonlocal_attention.launches
+        nonlocal_attention.launches = 0
+        heur_host = ev.run(Dataset(cfg, "test"), root, rgb_heuristics=True,
+                           fused=False)
+        launches["rgb ucb heuristics host"] = nonlocal_attention.launches
+        nonlocal_attention.launches = 0
+        heur = ev.run(Dataset(cfg, "test"), root, rgb_heuristics=True,
+                      images_per_call=UCB_PER_CALL)
+        launches["rgb ucb heuristics fused"] = nonlocal_attention.launches
+        # an eval forward is per view: the CPU runs the anchor alone
+        cpu_cfg = get_config("ucb", variant="rgb", eval_views=1,
+                             checkpoint_dir=os.path.join(work, "rgbcpu"),
+                             **kw)
+        cpu = UCBEvaluator(cpu_cfg, rgb_sd, device="cpu").run(
+            Dataset(cpu_cfg, "test"), root)
+    d_pred = max(float(np.abs(a["pred"] - b["pred"]).max())
+                 for a, b in zip(simple, cpu))
+    d_psnr = max(abs(a["psnr"] - b["psnr"]) for a, b in zip(simple, cpu))
+    differ = [int((h["detected"][..., 0] != f["detected"][..., 0]).sum())
+              for h, f in zip(heur_host, heur)]
+    print(f"RGB UCB f32, simple composite: card vs CPU max |pred diff| "
+          f"{d_pred:.2e}, max |dPSNR| {d_psnr:.2e} dB, mean PSNR "
+          f"{np.mean([r['psnr'] for r in simple]):.3f} dB; rgb_heuristics "
+          f"host vs fused k={UCB_PER_CALL}: pixels that differ per image "
+          f"{differ}; K1 launches simple {launches['rgb ucb simple']}, "
+          f"heuristics host {launches['rgb ucb heuristics host']}, fused "
+          f"{launches['rgb ucb heuristics fused']}", flush=True)
+    if not (d_pred <= 1e-3 and d_psnr <= 0.01 and max(differ) == 0):
+        raise SystemExit("RGB UCB: the card disagrees")
+    del ev
+
+    # --- both services: one batch of 64, bf16 folded, device geometry
+    images, lms = synthetic_requests(SERVE_BATCH, seed=1)
+    for variant, sd in (("tsm", tsm_sd), ("rgb", rgb_sd)):
+        svc = ShadowRemovalService(
+            get_config(variant=variant, compute_dtype="bfloat16",
+                       fold_bn=True, egress_dtype="bfloat16"), sd,
+            batch_size=SERVE_BATCH, device=dev)
+        nonlocal_attention.launches = 0
+        t0 = time.perf_counter()
+        results = svc.remove_shadows(images, lms)
+        wall = time.perf_counter() - t0
+        launches[f"{variant} serve"] = nonlocal_attention.launches
+        ref = ShadowRemovalService(get_config(variant=variant,
+                                              compute_dtype="float32"),
+                                   sd, batch_size=2, device="cpu"
+                                   ).remove_shadows(images[:2], lms[:2])
+        scores = [psnr(results[i]["pred"], r["pred"])
+                  for i, r in enumerate(ref)]
+        print(f"{variant} service: {len(results)} requests in one batch, "
+              f"{wall:.2f} s (first call); card bf16 vs CPU f32 pred "
+              + ", ".join(f"{s:.2f}" for s in scores) + " dB (bar 40); K1 "
+              f"launches {launches[f'{variant} serve']}", flush=True)
+        for r in results:
+            if not (r["pred"].shape == (256, 256, 3)
+                    and np.isfinite(r["pred"]).all()
+                    and 0.0 <= r["pred"].min() and r["pred"].max() <= 1.0):
+                raise SystemExit(f"{variant} service: bad output")
+            if variant == "rgb" and r["mask_pred"].any():
+                raise SystemExit("RGB service: the shadow map is not zeros")
+        if not min(scores) >= 40.0:
+            raise SystemExit(f"{variant} service disagrees with the CPU")
+        del svc
+
+    # --- both train steps at full width
+    train = {v: train_variant(dev, smi, v) for v in ("tsm", "rgb")}
+    launches["tsm train"] = train["tsm"]["launches"]
+    launches["rgb train"] = train["rgb"]["launches"]
+
+    # --- K1 at the new batches
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k1_err = max(check_k1(gen, shape, dtype)
+                 for shape, dtype in VARIANT_ATTN_CASES)
+    k1 = {}
+    for shape in VARIANT_K1_TIMED:
+        # below ~B=16 a call is shorter than its launch through the
+        # wrapper: 200 calls a turn, and the device time with the calls
+        # queued ahead
+        k1[shape] = time_k1(gen, shape, False, iters=200)
+
+    print("launches by path (K1, or K1/K2 in a train step): " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    want = {"tsm sfw": 6, "tsm video": 6, "tsm ucb host": 6 * UCB_IMAGES,
+            "tsm ucb fused": 6 * -(-UCB_IMAGES // UCB_PER_CALL),
+            "rgb ucb simple": 3 * UCB_IMAGES,
+            "rgb ucb heuristics host": 3 * UCB_IMAGES,
+            "rgb ucb heuristics fused": 3 * -(-UCB_IMAGES // UCB_PER_CALL),
+            "tsm serve": 6, "rgb serve": 3,
+            "tsm train": (6 * TRAIN_STEPS,) * 2,
+            "rgb train": (3 * TRAIN_STEPS,) * 2}
+    for path, n in want.items():
+        if launches[path] != n:
+            raise SystemExit(f"{path}: {launches[path]} launches, expected "
+                             f"{n}")
+    return dict(launches=launches, k1_err=max(k1_err, train["rgb"]["k1_err"]),
+                k2_err=train["rgb"]["k2_err"], k1=k1,
+                k2=train["rgb"]["k2"], train=train)
+
+
+def train_variant(dev, smi: str, variant: str) -> dict:
+    """TRAIN_WARMUP + TRAIN_STEPS steps of the variant's train step at 256
+    px, n_res=6, bf16, batch TRAIN_BATCH (64 views), as phase 8 runs GSC;
+    for TSM one step with the ShareLayer gate forced on and one forced
+    off; one step profiled (K1 and K2's share, K2's device time a call);
+    for RGB, K1 and K2 held against their plain versions on the operands
+    of one step's first NonLocal block.  Returns {launches (K1, K2 of the
+    timed steps), ms, k1_err, k2_err, k2}."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("train", variant=variant, batch_size=TRAIN_BATCH,
+                     compute_dtype="bfloat16", vgg_dtype="bfloat16",
+                     remat=False)
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(seed=0)
+    views = 2 * cfg.batch_size
+    batch = synthetic_train_batch(views, cfg.img_size, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses = []
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, step_losses, _ = trainer.train_step(state, batch, gen)
+        losses.append(torch.stack([step_losses[k] for k in LOSS_NAMES]))
+    end.record()
+    torch.cuda.synchronize()
+    launched = (nonlocal_attention.launches, nonlocal_attention_bwd.launches)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = torch.stack(losses).float().cpu().numpy()
+    print(f"{variant} train, {views} views of {cfg.img_size} px a step, bf16:"
+          f" {step_ms:.1f} ms/step, {views * 1e3 / step_ms:.1f} views/s, peak "
+          f"memory {peak:.2f} GiB ({smi}); K1, K2 launches {launched} in "
+          f"{TRAIN_STEPS} steps; last losses " + ", ".join(
+              f"{k} {v:.4g}" for k, v in zip(LOSS_NAMES, vals[-1])),
+          flush=True)
+    if not np.isfinite(vals).all():
+        raise SystemExit(f"{variant} train: a loss is not finite")
+    if variant == "tsm":
+        for share in (True, False):
+            trainer.share_gate = (lambda g, train, _s=share:
+                                  torch.tensor(_s, device=dev))
+            nonlocal_attention.launches = 0
+            nonlocal_attention_bwd.launches = 0
+            state, step_losses, _ = trainer.train_step(state, batch, gen)
+            vals = torch.stack([step_losses[k] for k in LOSS_NAMES])
+            ok = bool(torch.isfinite(vals).all())
+            print(f"tsm train, the ShareLayer gate forced {share}: losses "
+                  f"{'finite' if ok else 'NOT FINITE'}, K1, K2 launches "
+                  f"{nonlocal_attention.launches}, "
+                  f"{nonlocal_attention_bwd.launches}", flush=True)
+            if not ok or (nonlocal_attention.launches,
+                          nonlocal_attention_bwd.launches) != (6, 6):
+                raise SystemExit(f"tsm train with the gate {share} failed")
+        del trainer.share_gate
+    # one step profiled
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    k1_ms = sum(ms for key, ms, _ in kernels if "attn_fwd" in key)
+    k2_ms = sum(ms for key, ms, _ in kernels
+                if any(k in key for k in K2_KERNELS))
+    calls = ATTN_CALLS[variant]
+    print(f"{variant} train, one step profiled: {busy:.2f} ms of device "
+          f"kernels in {wall_ms:.2f} ms wall (idle "
+          f"{100 * (1 - busy / wall_ms):.1f}%); K1 {k1_ms:.3f} ms, K2 "
+          f"{k2_ms:.3f} ms ({k2_ms / calls:.4f} ms a call), together "
+          f"{100 * (k1_ms + k2_ms) / busy:.2f}% of the kernels", flush=True)
+    out = dict(launches=launched, ms=step_ms, k1_err=0.0, k2_err=0.0,
+               k2=dict(device_ms=k2_ms / calls))
+    if variant == "rgb":
+        out.update(step_operand_checks(trainer, state, batch, gen))
+        out["k2"]["device_ms"] = k2_ms / calls
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_rounding_bound(t, p, g, chunk: int = 8):
+    """(exact, bound) per element for softmax(t p^T) g of bf16 operands of
+    any scale: `exact` in f64 from the same operands, and how far from it
+    an implementation may land that rounds each weight to bf16 (normalized,
+    or unnormalized with a normalizer of rounded or unrounded weights: at
+    most 2^-7 relative a weight), sums the scores and the second product in
+    f32 (D and N terms), and rounds the output once to bf16 (2^-8 of it).
+    With A = sum_j w_j |g_j| and S = max_j sum_k |t_k p_jk| of a row:
+    |out - exact| <= (2^-7 + (2D + 4) 2^-24 S + N 2^-24) A (1 + 2^-8)
+    + 2^-8 |exact|, times 1.01 for the second-order terms.
+    KERNEL_TOLERANCE is a tighter figure for 0.3-randn operands (unit-
+    variance scores), which a trained network's activations need not be."""
+    b, n, d = t.shape
+    u = 2.0 ** -24
+    exact, bound = [], []
+    for i in range(0, b, chunk):
+        t64, p64, g64 = (x[i:i + chunk].double() for x in (t, p, g))
+        w = torch.softmax(t64 @ p64.transpose(1, 2), dim=-1)
+        o = w @ g64
+        a = w @ g64.abs()
+        s = (t64.abs() @ p64.abs().transpose(1, 2)).amax(-1, keepdim=True)
+        eps_w = 2.0 ** -7 + (2 * d + 4) * u * s + n * u
+        exact.append(o)
+        bound.append(1.01 * (eps_w * a * (1 + 2.0 ** -8)
+                             + 2.0 ** -8 * o.abs()))
+        del w, s
+    return torch.cat(exact), torch.cat(bound)
+
+
+def k1_on_real_operands(t, p, g, out, ref) -> bool:
+    """K1 and its plain version on a train step's own operands: each
+    against f64 arithmetic within k1_rounding_bound, and K1 against the
+    plain version within the sum of both bounds.  Prints the operands'
+    scale, KERNEL_TOLERANCE's reading (for the record) and each share of
+    its bound."""
+    exact, bound = k1_rounding_bound(t, p, g)
+    of = {name: (x.double() - exact).abs() / bound
+          for name, x in (("kernel", out), ("plain", ref))}
+    pair = ((out.double() - ref.double()).abs() / (2 * bound)).max().item()
+    atol, rtol = KERNEL_TOLERANCE[t.dtype]
+    worst = int(((out.float() - ref.float()).abs()).argmax())
+    scores = torch.matmul(t[:1].float(), p[:1].float().transpose(1, 2))
+    print(f"K1 on real operands {tuple(t.shape)} {t.dtype}: max |theta| "
+          f"{t.float().abs().max():.3g}, |phi| {p.float().abs().max():.3g}, "
+          f"|g| {g.float().abs().max():.3g}; element 0's scores span "
+          f"{scores.min():.3g}..{scores.max():.3g}, its largest weight "
+          f"{torch.softmax(scores, -1).max():.3g}; kernel vs plain at the "
+          f"worst element: {out.flatten()[worst].item():.6g} vs "
+          f"{ref.flatten()[worst].item():.6g} (exact "
+          f"{exact.flatten()[worst].item():.6g}); KERNEL_TOLERANCE reading "
+          f"max(err - {rtol:.3g}|ref|) {_excess(out, ref, rtol):.3e} (atol "
+          f"{atol:g}, for 0.3-randn operands); share of the rounding bound "
+          f"against f64: kernel {of['kernel'].max():.3f}, plain "
+          f"{of['plain'].max():.3f}, kernel vs plain {pair:.3f}", flush=True)
+    return bool(torch.isfinite(out).all()) and max(
+        of["kernel"].max().item(), pair) <= 1.0
+
+
+def step_operand_checks(trainer, state, batch, gen) -> dict:
+    """K1 and K2 against their plain versions on the operands of a train
+    step's first NonLocal block (captured on the way), within
+    KERNEL_TOLERANCE and bwd_tolerance; K2 timed there in turns with flash
+    SDPA's backward, with its bound.  Returns {k1_err, k2_err, k2}."""
+    captured = {}
+    launch_fwd, launch_bwd = attn_module._launch_fwd, \
+        attn_module.nonlocal_attention_bwd
+
+    def fwd(theta, phi, g, with_lse):
+        captured.setdefault("fwd", (theta.clone(), phi.clone(), g.clone()))
+        return launch_fwd(theta, phi, g, with_lse)
+
+    def bwd(*args):
+        captured.setdefault("bwd", tuple(a.clone() for a in args))
+        return launch_bwd(*args)
+
+    # the launcher counts on the module's nonlocal_attention_bwd, which is
+    # `bwd` while the patch holds
+    bwd.launches = 0
+    attn_module._launch_fwd, attn_module.nonlocal_attention_bwd = fwd, bwd
+    try:
+        trainer.train_step(state, batch, gen)
+    finally:
+        attn_module._launch_fwd = launch_fwd
+        attn_module.nonlocal_attention_bwd = launch_bwd
+    t, p, g = captured["fwd"]
+    with torch.no_grad():
+        out = _launch_fwd(t, p, g, with_lse=False)[0]
+        ref = nonlocal_attention_reference(t, p, g)
+    k1_err = float((out.float() - ref.float()).abs().max())
+    k1_ok = k1_on_real_operands(t, p, g, out, ref)
+    theta, phi, g, out, lse, dout = captured["bwd"]
+    grads = nonlocal_attention_bwd(theta, phi, g, out, lse, dout)
+    refs = nonlocal_attention_bwd_reference(theta, phi, g, dout)
+    k2_err, k2_ok, parts = 0.0, True, []
+    for name, a, r in zip(("dtheta", "dphi", "dg"), grads, refs):
+        atol2, rtol2 = bwd_tolerance(r, theta.dtype)
+        ex = _excess(a, r, rtol2)
+        k2_err = max(k2_err, float((a.float() - r.float()).abs().max()))
+        k2_ok = k2_ok and ex <= atol2 and bool(torch.isfinite(a).all())
+        parts.append(f"{name} max(err - {rtol2:.3g}|ref|) {ex:.3e} (atol "
+                     f"{atol2:.3g}, max |ref| {r.float().abs().max():.3f})")
+    b, n, d = theta.shape
+    print(f"rgb train step's operands {tuple(theta.shape)} {theta.dtype}: K1 "
+          f"max_abs_err {k1_err:.3e} ({'ok' if k1_ok else 'FAIL'}); K2 "
+          + "; ".join(parts) + f" ({'ok' if k2_ok else 'FAIL'})", flush=True)
+    if not (k1_ok and k2_ok and (b, n, d) == (2 * TRAIN_BATCH, 1024, 256)):
+        raise SystemExit("K1 or K2 disagrees on the RGB step's operands")
+    # K2 there, in turns with flash SDPA's backward on the same operands
+    q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    do4 = dout[:, None].contiguous()
+    turns = alternate_ms({
+        "kernel": lambda: nonlocal_attention_bwd(theta, phi, g, out, lse,
+                                                 dout),
+        "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                             retain_graph=True)})
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
+            theta, phi, g, dout))
+    k2_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
+    bound_ms, bound_by = attention_bwd_bound_ms(b, n, d, theta.dtype)
+    print(f"K2 at the RGB step's ({b},{n},{d}): {k2_ms:.4f} ms "
+          f"({100 * bound_ms / k2_ms:.1f}% of the bound {bound_ms:.4f} ms, "
+          f"{bound_by}), plain {plain_ms:.4f} ms, flash sdpa backward "
+          f"{sdpa_ms:.4f} ms (medians; by turn kernel "
+          f"{', '.join(f'{x:.4f}' for x in turns['kernel'])})", flush=True)
+    return dict(k1_err=k1_err, k2_err=k2_err,
+                k2=dict(ms=k2_ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                        bound_ms=bound_ms, bound_by=bound_by))
 
 
 # (library, label, name substrings of its bf16 kernels, how many): the

@@ -274,7 +274,5 @@ def test_prefetch_stops_producer_on_early_exit():
 def test_unported_parsers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP C5"):
         Dataset(get_config("train"), "train")
-    ds = Dataset(get_config("sfw", variant="gsc", data_dirs_test=()), "test",
-                 dset="sfw")
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-        ds.parse_test_ucb_mirror("x.npy")
+    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
+        Dataset(get_config("train"), "val")

@@ -22,6 +22,7 @@ from blindshadowremoval_tpu.train.trainer import build_generator
 from blindshadowremoval_tpu_torch.config import get_config
 from blindshadowremoval_tpu_torch.data.dataset import Dataset
 from blindshadowremoval_tpu_torch.eval import evaluators
+from blindshadowremoval_tpu_torch.eval.postprocess import PostprocessParams
 from blindshadowremoval_tpu_torch.models.weights import from_jax_variables
 from chip_smoke import synthetic_ucb_tree
 
@@ -184,11 +185,14 @@ def test_ucb_name_keyed_masks_refuse_a_mismatch(ucb, tmp_path):
 
 
 def test_evaluators_refuse_unported_protocols(ucb):
+    """The TSM and RGB protocols are ported (tests/test_torch_variants_*);
+    a GSC evaluator keeps the GSC protocol, and no evaluator falls back to
+    the CPU on its own."""
     ev = ucb["ev"]
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-        ev.run_one_tsm()
-    with pytest.raises(NotImplementedError, match="ROADMAP D2"):
-        ev.run_one_simple()
+    assert ev._protocol(None) == (PostprocessParams(), "gsc")
+    with pytest.raises(ValueError, match="fused path"):
+        ev.run(Dataset(ev.config, "test"), ucb["root"], fused=False,
+               images_per_call=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             evaluators.SFWEvaluator(get_config(n_res=N_RES))

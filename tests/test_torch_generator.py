@@ -168,15 +168,21 @@ def test_build_generator_raises_without_cuda():
 
 
 def test_config_rejects_unported_options():
-    for kw in (dict(variant="tsm"), dict(variant="rgb"),
-               dict(int8_head=True), dict(s2d_convs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(int8_head=True), dict(s2d_convs=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP F4"):
             get_config(**kw)
     # the train preset is ported; its device-darkening wire waits for the
-    # tone curve
+    # tone curve, its uint8 wire for the train loop
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         get_config("train", device_darken=True)
-    # the SFW presets default to the TSM variant, as in the JAX package
+    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
+        get_config("train", compact_ingress=True, ingress_u8=True)
+    with pytest.raises(ValueError, match="unknown variant"):
+        get_config(variant="vgg")
+    # the SFW presets build the TSM variant, as in the JAX package; its
+    # collective ShareLayer (frames over devices) waits for F1
     for preset in ("sfw", "sfw_video"):
-        with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-            get_config(preset)
+        assert get_config(preset).variant == "tsm"
+    from blindshadowremoval_tpu_torch.models.generator_tsm import ShareLayer
+    with pytest.raises(NotImplementedError, match="ROADMAP F1"):
+        ShareLayer(axis_name="frame")

@@ -58,6 +58,9 @@ from blindshadowremoval_tpu_torch.models import build_generator
 from blindshadowremoval_tpu_torch.utils.logging import TrainLogger
 gen = build_generator(get_config(compute_dtype="float32", n_res=2),
                       device="cpu")
+for variant in ("tsm", "rgb"):
+    build_generator(get_config(variant=variant, compute_dtype="float32",
+                               n_res=2), device="cpu")
 ds = Dataset(get_config("sfw", variant="gsc", data_dirs_test=(
     "tests/goldens/tf_ref/sfw_gsc_synth/*",)), "test", dset="sfw")
 assert len(ds.name_list) == 1

@@ -28,10 +28,14 @@ def cuda_device():
 
 
 # K1's cases: the main path's widths, ragged tails of the 128- and 64-key
-# tiles, a single row (N=1), one row past a tile (N=129), and 300 batch
-# elements of one partial query tile each (N=64)
+# tiles, a single row (N=1), one row past a tile (N=129), 300 batch
+# elements of one partial query tile each (N=64), and the batches of the
+# TSM and RGB paths
 FWD_CASES = [
-    (2, 1024, 128, torch.bfloat16),
+    (2, 1024, 128, torch.bfloat16),    # TSM: an anchor and its mirror
+    (16, 1024, 128, torch.bfloat16),   # TSM: a fused UCB pass of 8 pairs
+    (10, 1024, 256, torch.bfloat16),   # RGB: one evaluation sample
+    (80, 1024, 256, torch.bfloat16),   # RGB: a fused UCB pass
     (2, 200, 128, torch.bfloat16),
     (2, 1024, 256, torch.bfloat16),
     (2, 1024, 128, torch.float32),
@@ -125,6 +129,7 @@ def _operands(device, b, n, d, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,dtype", [
     (64, 1024, 128, torch.bfloat16),   # the train step's shape
+    (64, 1024, 256, torch.bfloat16),   # the RGB train step's shape
     (2, 200, 128, torch.bfloat16),     # ragged N
     (2, 1024, 256, torch.bfloat16),    # RGB's width
     (2, 1024, 128, torch.float32),

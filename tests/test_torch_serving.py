@@ -65,8 +65,10 @@ def test_service_matches_jax(variables, requests, device_geometry, compact):
                      variables, batch_size=2, **wires).remove_shadows(
         images, lms)
     svc = ShadowRemovalService(
-        get_config(img_size=S, compute_dtype="float32", n_res=N_RES, **wires),
-        from_jax_variables(variables), batch_size=2, device="cpu")
+        get_config(img_size=S, compute_dtype="float32", n_res=N_RES,
+                   compact_output=compact, compact_ingress=compact),
+        from_jax_variables(variables), batch_size=2, device="cpu",
+        device_geometry=device_geometry)
     out = svc.remove_shadows(images, lms)
     assert len(out) == len(ref) == 3
     for ours, theirs in zip(out, ref):
@@ -103,9 +105,9 @@ def test_bf16_egress_arrives_bf16_exact(variables, requests, device_geometry):
     images, lms = requests
     svc = ShadowRemovalService(
         get_config(img_size=S, compute_dtype="bfloat16", fold_bn=True,
-                   egress_dtype="bfloat16", n_res=N_RES,
-                   device_geometry=device_geometry),
-        from_jax_variables(variables), batch_size=2, device="cpu")
+                   egress_dtype="bfloat16", n_res=N_RES),
+        from_jax_variables(variables), batch_size=2, device="cpu",
+        device_geometry=device_geometry)
     out = svc.remove_shadows(images, lms)
     assert len(out) == 3
     for r in out:

@@ -106,7 +106,8 @@ def _moments(module, opt):
     return {n: opt.state[p]["exp_avg"] for n, p in module.named_parameters()}
 
 
-def _check_moments(got, jax_mu, jax_params, stats, convert, label):
+def _check_moments(got, jax_mu, jax_params, stats, convert, label,
+                   limit=1e-3):
     want = convert({"params": jax.tree.map(np.asarray, jax_mu),
                     "batch_stats": stats})
     top = max(float(want[n].abs().max()) for n in got)
@@ -121,7 +122,7 @@ def _check_moments(got, jax_mu, jax_params, stats, convert, label):
         # or 4 (D) views, XLA and ATen summing in other orders: measured
         # at most 1.1e-4 relative (Frobenius)
         err = float((m - w).norm() / w.norm())
-        assert err < 1e-3, f"{label} {name}: relative error {err:.2e}"
+        assert err < limit, f"{label} {name}: relative error {err:.2e}"
 
 
 def test_train_step_matches_jax(jax_step, monkeypatch):
@@ -254,9 +255,6 @@ def test_step_refuses_what_is_not_ported():
     del batch["img_dark"]
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         trainer.train_step(tstate, batch, torch.Generator())
-    for variant, item in (("tsm", "D1"), ("rgb", "D2")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            get_config("train", variant=variant)
     with pytest.raises(NotImplementedError, match="ROADMAP C5"):
         get_config("train", compact_ingress=True, ingress_u8=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
