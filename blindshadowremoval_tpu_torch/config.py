@@ -1,11 +1,11 @@
-"""Configuration of the ported paths: serving, the GAN train step and
-evaluation (UCB, SFW, SFW video, in-the-wild) of the three generator
-variants (gsc, tsm, rgb).
+"""Configuration of the ported paths: serving, training (the train data
+pipeline, the GAN train step, `fit`) and evaluation (UCB, SFW, SFW video,
+in-the-wild) of the three generator variants (gsc, tsm, rgb).
 
 Port of `blindshadowremoval_tpu/config.py`, cut to the fields those paths
-read.  Options whose code paths are not ported yet raise
-`NotImplementedError` naming the ROADMAP.md item that ports them, so a
-caller never silently gets another configuration than it asked for.
+read.  The options whose code paths are not ported (the TPU experiments
+of ROADMAP F4) raise `NotImplementedError` naming the item, so a caller
+never silently gets another configuration than it asked for.
 """
 
 from __future__ import annotations
@@ -46,6 +46,11 @@ class Config:
     fold_bn: bool = False              # fold eval BatchNorm into the convs
     egress_dtype: str = "float32"      # dtype of the generator's outputs
     mode: str = "in_the_wild"          # preset name of the run
+    # data (data/dataset.py)
+    data_dirs: tuple = ()              # train identity-folder globs
+    data_dirs_val: tuple = ()          # val identity-folder globs
+    shadow_mask_dir: str = ""          # occluder PNG library (ShadowMaker);
+                                       # empty: procedural Perlin masks
     # evaluation (eval/evaluators.py, data/dataset.py)
     eval_views: int = 10               # views per UCB / in-the-wild sample:
                                        # the anchor + eval_views-1 random
@@ -60,6 +65,13 @@ class Config:
     lr_decay_factor: float = 1.0       # staircase decay; 1.0 = constant
     lr_decay_epochs: float = 10.0      # epochs between decay steps
     steps_per_epoch: int = 2000
+    max_epoch: int = 300
+    # logging (train/loop.py, utils/logging.py)
+    img_log_freq: int = 100            # figure grid every n logged steps
+    txt_log_freq: int = 1000           # log.txt line every n logged steps
+    log_every_steps: int = 1           # loss-fetch cadence (each fetch is a
+                                       # host sync)
+    fig_size: int = 128                # figure-grid tile size
     n_layer_d: int = 4                 # discriminator depth
     vgg_dtype: str = "bfloat16"        # perceptual-backbone compute dtype
     remat: bool = False                # recompute ResBottlenecks in backward
@@ -71,12 +83,20 @@ class Config:
                                        # the device (the train step branches
                                        # on the batch: "lm" rasterizes)
     compact_output: bool = False       # serving: uint8 pred + f16 mask_pred
-    compact_ingress: bool = False      # uint16 fixed-point image ingress
+    compact_ingress: bool = False      # [0,1] image planes on the wire as
+                                       # uint16 fixed point (1/65535),
+                                       # clamped to [0,1] first; the step
+                                       # dequantizes on the device
+    ingress_u8: bool = False           # with compact_ingress: uint8 (1/255),
+                                       # the 8-bit source's own step
+    device_darken: bool = False        # the train step derives the tone-
+                                       # curve pair (gt, img_dark) on the
+                                       # device (derive_darkened_views) and
+                                       # the parser ships the raw crop; the
+                                       # derived pair is clamped to [0,1],
+                                       # as the compact wire clamps the
+                                       # host pair
     # not ported: must stay at their defaults
-    device_darken: bool = False        # ROADMAP C1 (the tone curve)
-    ingress_u8: bool = False           # ROADMAP C5 (the train loop's uint8
-                                       # wire; the step itself decodes a
-                                       # batch by its dtype)
     int8_head: bool = False            # ROADMAP F4
     s2d_convs: bool = False            # ROADMAP F4
 
@@ -84,14 +104,6 @@ class Config:
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r}; choose "
                              f"from {VARIANTS}")
-        if self.device_darken:
-            raise NotImplementedError(
-                "device_darken is not ported: it needs the tone curve "
-                "(ops/tonecurve.py, derive_darkened_views; ROADMAP C1)")
-        if self.ingress_u8:
-            raise NotImplementedError(
-                "ingress_u8 is not ported: the train loop that ships the "
-                "uint8 wire waits (ROADMAP C5)")
         if self.int8_head:
             raise NotImplementedError("int8_head is not ported (ROADMAP F4)")
         if self.s2d_convs:

@@ -1,5 +1,5 @@
-"""Data pipeline, test side: host decode/crop + geometry -> batch dicts
-(port of `blindshadowremoval_tpu/data/dataset.py`).
+"""Data pipeline: host decode/crop + geometry -> batch dicts (port of
+`blindshadowremoval_tpu/data/dataset.py`).
 
 Batches are dicts of named [V, S, S, C] numpy arrays; `pack_views` /
 `unpack_views` give the reference's channel-packed layout.  Images are
@@ -7,6 +7,10 @@ decoded by the port's own PNG codec (utils/imageio.py) with cv2's channel
 conventions, and folders are natural-sorted without natsort.
 
 File-layout contracts, as in the JAX package:
+  * train / val dirs: `<identity>/<frame>.png` + `<frame>.npy` 68x2
+    landmarks; a sample is one random frame of a random identity, cropped
+    with augmentation, and its mirrored twin (`parse_train`), read by a
+    pool of worker processes (`_train_iter`);
   * UCB test: `<root>/input/<id>/<img>.npy|png` with gt at `<root>/gt/...`
     (dataset.py:151-155);
   * FFHQ / in-the-wild: gt = input (dataset.py:622-623);
@@ -17,13 +21,14 @@ File-layout contracts, as in the JAX package:
     sample is the frame and its mirrored twin;
   * UCB under variant="tsm": the anchor and its mirrored twin
     (`parse_test_ucb_mirror`).
-
-Not ported: the train parser and iterator (ROADMAP C5).
 """
 
 from __future__ import annotations
 
+import atexit
+import concurrent.futures as _futures
 import glob as _glob
+import multiprocessing
 import os
 import queue as _queue
 import re
@@ -31,8 +36,10 @@ import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 from blindshadowremoval_tpu_torch.config import Config
+from blindshadowremoval_tpu_torch.data.synthesis import shadow_synthesis_host
 from blindshadowremoval_tpu_torch.geometry.crop import face_crop_and_resize
 from blindshadowremoval_tpu_torch.geometry.landmarks import (
     LM_REF,
@@ -157,24 +164,78 @@ def prefetch(iterable, depth: int = 2):
         stop.set()
 
 
+# the train iterator's worker process: its Dataset and Generator
+_WORKER: dict = {}
+
+
+def _worker_init(config: Config, mode: str, names: list, seed: int,
+                 started) -> None:
+    """A parse worker's start: one torch intra-op thread (the workers fill
+    the cores), and the Generator of SeedSequence(seed)'s k-th child for
+    the k-th worker started.  The parse path calls no numpy BLAS
+    (utils/imageio.py:resize_linear gathers): OpenBLAS's spinning thread
+    pool, one a worker, left 7 workers barely faster than one."""
+    torch.set_num_threads(1)
+    with started.get_lock():
+        k = started.value
+        started.value += 1
+    ds = Dataset(config, mode, seed=seed)
+    ds.name_list = list(names)
+    _WORKER["ds"] = ds
+    _WORKER["rng"] = np.random.default_rng(
+        np.random.SeedSequence(seed, spawn_key=(k,)))
+
+
+def _worker_sample() -> dict:
+    """One sample of a random identity, in a parse worker."""
+    ds, rng = _WORKER["ds"], _WORKER["rng"]
+    d = ds.name_list[int(rng.integers(0, len(ds.name_list)))]
+    return ds.parse_train(d, rng=rng)
+
+
+def stop_parse_servers() -> None:
+    """Stop the forkserver that forks the parse workers, then the resource
+    tracker they share, and wait for both to end (a later train iterator
+    starts both again).  Left alone, each ends only once it sees its
+    parent gone, and then unloads torch: a program would leave them
+    running past its own end.  Runs at exit, after the executors' own exit
+    hook has joined the workers."""
+    from multiprocessing import forkserver, resource_tracker
+    for server in (forkserver._forkserver, resource_tracker._resource_tracker):
+        server._stop()
+
+
+atexit.register(stop_parse_servers)
+
+
 class Dataset:
-    """Test-mode dataset with the reference's `.name_list` contract."""
+    """Mode-dispatching dataset with the reference's `.name_list` contract:
+    "train" and "val" list identity folders and iterate forever over
+    random augmented samples parsed by `workers` processes; the other
+    modes list test samples and iterate over them once."""
 
     def __init__(self, config: Config, mode: str, dset: Optional[str] = None,
-                 seed: int = 0):
-        if mode in ("train", "val"):
-            raise NotImplementedError(
-                f"Dataset mode {mode!r} is not ported yet (ROADMAP C5)")
+                 seed: int = 0, workers: Optional[int] = None):
         self.config = config
         self.mode = mode
         self.dset = dset
         self.seed = seed
+        # train/val parse processes; by default half the cores (2-16): on
+        # an 8-core H100 host 4 keep up with the step (17 ms a sample, 543
+        # ms a batch of 32 against a 552 ms step, chip_smoke.py phase 13)
+        # and leave the rest to the step's launching thread, which a busy
+        # host slows (phase 13 times the step alone and beside the pool)
+        self.workers = workers or max(2, min((os.cpu_count() or 2) // 2, 16))
         self.rng = np.random.default_rng(seed)
-        self.name_list = self._collect(config.data_dirs_test)
+        dirs = {"train": config.data_dirs,
+                "val": config.data_dirs_val}.get(mode, config.data_dirs_test)
+        self.name_list = self._collect(dirs)
         self.feed = iter(self)
 
     # ----------------------------------------------------------- listing
     def _collect(self, dirs: Sequence[str]) -> list[str]:
+        if self.mode in ("train", "val"):
+            return [d for pattern in dirs for d in _glob.glob(pattern)]
         # sfw frame eval keys off the label masks (dataset_with_TSM.py:62);
         # video mode and image eval key off the landmark files
         # (dataset.py:56)
@@ -189,9 +250,43 @@ class Dataset:
         return samples
 
     # ----------------------------------------------------------- parsers
-    def parse_train(self, identity_dir: str, rng=None) -> dict:
-        raise NotImplementedError(
-            "the train parser is not ported yet (ROADMAP C5)")
+    def parse_train(self, identity_dir: str,
+                    rng: Optional[np.random.Generator] = None) -> dict:
+        """One training sample (dataset.py:219-265): a random frame of
+        the identity, cropped with augmentation, and its mirrored twin, as
+        a dict of [2, S, S, C] arrays.  `rng` (default `self.rng`) lets
+        each parse worker draw from its own Generator.
+
+        Four wires: `device_geometry` ships landmarks and topologies and the
+        UNGATED occluder mask (the step rasterizes the face and gates by
+        it) where host maps ship uv, reg and face; `device_darken` ships
+        the raw crop as `gt` and no `img_dark` (the step derives the pair,
+        one draw a mirrored pair, like this parser)."""
+        cfg = self.config
+        s = cfg.img_size
+        rng = self.rng if rng is None else rng
+        lms = _glob.glob(identity_dir + "/*.npy")
+        lm_path = lms[int(rng.integers(0, len(lms)))]
+        gt0 = _imread_rgb(lm_path.rsplit(".", 1)[0] + ".png")
+        gt, lm, lm_mirror, _ = face_crop_and_resize(
+            gt0, np.load(lm_path), s, aug=True, rng=rng)
+        devgeo, devdark = cfg.device_geometry, cfg.device_darken
+        gt, img_dark, mask, _, face = shadow_synthesis_host(
+            gt, lm, 0.0, mask_dir=cfg.shadow_mask_dir or None, rng=rng,
+            rasterize_face=not devgeo, darken=not devdark)
+        if devgeo:
+            g, gm = _geometry_primitives(lm), _geometry_primitives(lm_mirror)
+        else:
+            g, gm = _geometry(lm, s), _geometry(lm_mirror, s)
+        view0 = {"gt": gt, "mask": mask[..., :1], **g}
+        view1 = {"gt": gt[:, ::-1], "mask": mask[:, ::-1, :1], **gm}
+        if img_dark is not None:
+            view0["img_dark"] = img_dark
+            view1["img_dark"] = img_dark[:, ::-1]
+        if not devgeo:
+            view0["face"] = face[..., :1]
+            view1["face"] = face[:, ::-1, :1]
+        return _stack_views([view0, view1])
 
     def _test_view(self, lm_path: str, gt: Optional[np.ndarray],
                    extra: Optional[np.ndarray] = None):
@@ -370,11 +465,53 @@ class Dataset:
 
     # --------------------------------------------------------- iteration
     def __iter__(self) -> Iterator:
+        if self.mode in ("train", "val"):
+            return self._train_iter()
         return self._test_iter()
 
     def _train_iter(self):
-        raise NotImplementedError(
-            "the train iterator is not ported yet (ROADMAP C5)")
+        """Endless random samples parsed by a pool of worker processes
+        (the JAX package's thread pool, dataset.py:490-526, as processes),
+        2 per worker in flight, yielded in submission order.
+
+        Processes, not threads: the port's train step is eager, ~7,250
+        kernel launches a step from the Python thread that trains, and a
+        parse thread holds the GIL for its numpy and torch dispatch; with
+        the JAX package's thread pool, fit ran 3.1-4.4 s a step against
+        0.35 s for the bare step on an H100 host (chip_smoke.py phase 13,
+        PERF.md §6).  JAX's step is one jitted call, so its threads never
+        met this.
+
+        Each worker draws from its own np.random.Generator, the k-th
+        process started taking SeedSequence(seed)'s k-th child, and runs
+        its torch CPU ops on one intra-op thread.  The pool lives as long
+        as the iterator: closing or dropping it cancels the queued parses
+        and ends the processes; at the program's exit the forkserver and
+        resource tracker behind them are stopped too
+        (`stop_parse_servers`)."""
+        n_workers = self.workers
+        # forkserver: a fresh server process, started once and never the
+        # caller with its threads and CUDA context, imports the parser and
+        # forks each worker; a worker re-imports the caller's main module,
+        # so a script that trains keeps its work under `if __name__ ==
+        # "__main__":`, as for any spawned process
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload([__name__])
+        pool = _futures.ProcessPoolExecutor(
+            n_workers, mp_context=ctx, initializer=_worker_init,
+            initargs=(self.config, self.mode, self.name_list, self.seed,
+                      ctx.Value("i", 0)))
+        try:
+            pending = [pool.submit(_worker_sample)
+                       for _ in range(2 * n_workers)]
+            idx = 0
+            while True:
+                result = pending[idx].result()
+                pending[idx] = pool.submit(_worker_sample)
+                idx = (idx + 1) % len(pending)
+                yield result
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
 
     def _test_iter(self):
         for name in self.name_list:

@@ -6,7 +6,10 @@ Two sources, both plain numpy, so neither needs JAX or TensorFlow:
     (`{params, batch_stats}`, or a folded `{params}` tree), as numpy;
     `discriminator_from_jax` and `vgg_from_jax` do the same for the
     discriminator trio and VGG-19, so tests start both packages from one
-    JAX initialization.
+    JAX initialization; `train_state_from_jax` carries a whole JAX
+    `TrainState` (weights, statistics, both optax Adam states, the LR
+    schedule's count) into a `TrainState.state_dict()`, so a JAX run
+    continues in the port.
   * `load_tf_weights`: a `{tf_name: array}` dict in the reference's TF
     checkpoint naming, through the name mapping of a generator variant (a
     port of `blindshadowremoval_tpu/models/tf_checkpoint.py:
@@ -127,6 +130,53 @@ def vgg_from_jax(params: Any) -> dict[str, torch.Tensor]:
     for name in conv_names():
         _conv_from_flax(sd, f"convs.{name}", params[name], transpose=False)
     return sd
+
+
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _param_tree(convert, params: Any, stats: Any) -> dict[str, torch.Tensor]:
+    """A tree shaped like `params` (an optax moment) -> {parameter name:
+    tensor}, through the converter of its network."""
+    sd = convert({"params": params, "batch_stats": stats})
+    return {k: v for k, v in sd.items() if not k.endswith(_BUFFERS)}
+
+
+def _adam_from_optax(opt_state: Any, convert, stats: Any) -> dict:
+    """optax `adam(lr, eps)` state, (ScaleByAdamState(count, mu, nu),
+    EmptyState | ScaleByScheduleState(count)), -> the port's Adam state by
+    parameter name.  optax's count is torch's step: both bias-correct
+    with the count after the update, and both add eps outside the square
+    root."""
+    adam = opt_state[0]
+    return {"count": int(np.asarray(adam.count)),
+            "exp_avg": _param_tree(convert, adam.mu, stats),
+            "exp_avg_sq": _param_tree(convert, adam.nu, stats)}
+
+
+def train_state_from_jax(state: Any) -> dict:
+    """A JAX `TrainState` (numpy leaves: step, gen_params/gen_stats,
+    disc_params/disc_stats, vgg_params, gen_opt_state, disc_opt_state) ->
+    the port's `TrainState.state_dict()`; load it with
+    `TrainState.load_state_dict` into a state of the same config."""
+    # ScaleByScheduleState(count) under LR decay, else EmptyState(): both
+    # are NamedTuples, and a tuple has a `count` method, so ask its fields
+    sched = state.gen_opt_state[1]
+    decays = "count" in getattr(sched, "_fields", ())
+    return {
+        "step": int(np.asarray(state.step)),
+        "gen": from_jax_variables({"params": state.gen_params,
+                                   "batch_stats": state.gen_stats}),
+        "disc": discriminator_from_jax({"params": state.disc_params,
+                                        "batch_stats": state.disc_stats}),
+        "vgg": vgg_from_jax(state.vgg_params),
+        "gen_opt": _adam_from_optax(state.gen_opt_state, from_jax_variables,
+                                    state.gen_stats),
+        "disc_opt": _adam_from_optax(state.disc_opt_state,
+                                     discriminator_from_jax,
+                                     state.disc_stats),
+        "lr_count": int(np.asarray(sched.count)) if decays else None,
+    }
 
 
 # ------------------------------------------------------------------- TF names

@@ -105,9 +105,17 @@ def build(name: str) -> str:
 def build_all(force: bool = False) -> dict[str, str]:
     """Compile every library not built yet (every library when `force`),
     one nvcc per source, all started together.  Returns {name: nvcc
-    output}."""
+    output}.  Every nvcc started is waited for before a failure raises."""
     started = {name: _start(name, force) for name in SOURCES}
-    return {name: _finish(name, proc) for name, proc in started.items()}
+    logs, failed = {}, []
+    for name, proc in started.items():
+        try:
+            logs[name] = _finish(name, proc)
+        except RuntimeError as e:
+            failed.append(e)
+    if failed:
+        raise failed[0]
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

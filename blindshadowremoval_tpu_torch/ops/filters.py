@@ -112,7 +112,14 @@ def disc_blur(img: torch.Tensor, radius, max_radius: int = 24) -> torch.Tensor:
 
 
 def box_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """cv2.blur-style normalized box filter of [B, H, W, C]."""
-    k = torch.full((ksize,), 1.0 / ksize, dtype=torch.float32,
-                   device=x.device)
-    return _depthwise_separable(x, k, ksize // 2)
+    """`cv2.blur(x, (ksize, ksize))` of [B, H, W, C]: the normalized box
+    with cv2's anchor at ksize // 2 (output i averages the window
+    [i - k//2, i + k - 1 - k//2], so an even box reaches one pixel further
+    back than forward) and BORDER_REFLECT_101.  Each axis is a difference
+    of running sums in f64, whatever the box size."""
+    y = reflect_pad(x, ksize // 2).double()
+    for dim, n in ((1, x.shape[1]), (2, x.shape[2])):
+        c = torch.cumsum(y, dim=dim)
+        c = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)), c], dim=dim)
+        y = (c.narrow(dim, ksize, n) - c.narrow(dim, 0, n)) / ksize
+    return y.to(x.dtype)

@@ -31,10 +31,13 @@ training (one draw a step, `share_gate`), always on in the val pass
 prediction, its grayscale the `gs` of the losses, the reconstruction loss
 is recon_c alone and the mask map is zeros (train_RGB_test.py).
 
-Randomness comes from an explicit `torch.Generator` on the step's device.
-Not ported yet
-(ROADMAP C1/C5): the tone-curve darkening wire (`device_darken`), `fit`,
-checkpoints, the train parser and the native loader.
+Wires: a batch without `img_dark` is the `device_darken` wire, whose raw
+crops the step turns into the tone-curve pair (one draw a mirrored pair,
+data/synthesis.py:derive_darkened_views); a batch with `lm` is the
+device-geometry wire.  Randomness comes from an explicit `torch.Generator`
+on the step's device.  `TrainState.state_dict` / `load_state_dict` give the
+whole state as plain tensors (utils/checkpoint.py saves it;
+models/weights.py:train_state_from_jax makes one from a JAX state).
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ import sys
 import torch
 
 from blindshadowremoval_tpu_torch.config import Config, resolve_device
-from blindshadowremoval_tpu_torch.data.synthesis import compose_shadow_image
+from blindshadowremoval_tpu_torch.data.synthesis import (
+    compose_shadow_image,
+    derive_darkened_views,
+)
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
     device_geometry_maps,
 )
@@ -78,6 +84,43 @@ LOSS_NAMES = ("recon_gs", "recon_c", "grad", "gen", "per", "mask",
               "disc_real", "disc_fake")
 
 
+def _adam_state(module: torch.nn.Module, opt: torch.optim.Adam) -> dict:
+    """Adam's state by parameter name: {count, exp_avg, exp_avg_sq}."""
+    out = {"count": 0, "exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in module.named_parameters():
+        st = opt.state.get(p)
+        if st:
+            out["count"] = int(st["step"])
+            out["exp_avg"][name] = st["exp_avg"]
+            out["exp_avg_sq"][name] = st["exp_avg_sq"]
+    return out
+
+
+def _load_adam_state(module: torch.nn.Module, opt: torch.optim.Adam,
+                     st: dict) -> None:
+    opt.state.clear()
+    for name, p in module.named_parameters():
+        if name in st["exp_avg"]:
+            opt.state[p] = {
+                "step": torch.tensor(float(st["count"]), dtype=torch.float32),
+                "exp_avg": st["exp_avg"][name].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": st["exp_avg_sq"][name].to(
+                    p.device, p.dtype).clone()}
+
+
+def _set_lr_count(sched: torch.optim.lr_scheduler.LambdaLR,
+                  count: int) -> None:
+    """Put a staircase scheduler (and its optimizer's learning rate) at
+    `count` updates."""
+    sd = sched.state_dict()
+    lrs = [base * fn(count) for base, fn in zip(sched.base_lrs,
+                                                 sched.lr_lambdas)]
+    sd.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
+    sched.load_state_dict(sd)
+    for group, lr in zip(sched.optimizer.param_groups, lrs):
+        group["lr"] = lr
+
+
 @dataclasses.dataclass
 class TrainState:
     """Modules and optimizers of a run; `train_step` updates it in place."""
@@ -91,6 +134,54 @@ class TrainState:
     gen_sched: torch.optim.lr_scheduler.LambdaLR | None = None
     disc_sched: torch.optim.lr_scheduler.LambdaLR | None = None
 
+    def state_dict(self) -> dict:
+        """The whole state as plain tensors (references, as a module's
+        state_dict): {step, gen, disc, vgg, gen_opt, disc_opt, lr_count};
+        each optimizer's state is keyed by parameter name ({count,
+        exp_avg, exp_avg_sq}), and lr_count is the staircase's update
+        count, None at a constant learning rate."""
+        return {
+            "step": int(self.step),
+            "gen": self.gen.state_dict(),
+            "disc": self.disc.state_dict(),
+            "vgg": self.vgg.state_dict(),
+            "gen_opt": _adam_state(self.gen, self.gen_opt),
+            "disc_opt": _adam_state(self.disc, self.disc_opt),
+            "lr_count": (None if self.gen_sched is None
+                         else int(self.gen_sched.last_epoch)),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a `state_dict()` in place.  A staircase state loads only
+        into a staircase config and a constant one only into a constant
+        one (as the JAX package's optimizer trees differ);
+        `CheckpointManager.restore_eval` reads the generator alone."""
+        if (sd["lr_count"] is None) != (self.gen_sched is None):
+            raise ValueError(
+                "the state's learning-rate schedule differs from the "
+                "config's (lr_decay_factor): restore the generator alone "
+                "(CheckpointManager.restore_eval), or match the config")
+        self.step = int(sd["step"])
+        for name in ("gen", "disc", "vgg"):
+            getattr(self, name).load_state_dict(sd[name])
+        _load_adam_state(self.gen, self.gen_opt, sd["gen_opt"])
+        _load_adam_state(self.disc, self.disc_opt, sd["disc_opt"])
+        if sd["lr_count"] is not None:
+            _set_lr_count(self.gen_sched, sd["lr_count"])
+            _set_lr_count(self.disc_sched, sd["lr_count"])
+
+
+_SHARED_TRAINERS: dict = {}   # (config, VGG weights' id, device) -> Trainer
+
+
+def init_generator_vars(config: Config, seed: int = 0):
+    """(generator module on the CPU, its state_dict) of `config`, the
+    weights `Trainer.init_state(seed)` starts the generator from: the
+    template of every generator-only consumer (restore, serving, tools)."""
+    gen = new_generator(config)
+    _glorot_init(gen, seed)
+    return gen, gen.state_dict()
+
 
 @dataclasses.dataclass(eq=False)
 class Trainer:
@@ -103,6 +194,20 @@ class Trainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    @classmethod
+    def shared(cls, config: Config, vgg_weights: dict | None = None,
+               device=None) -> "Trainer":
+        """The process's Trainer for (config, VGG weights, device): built
+        once, then reused.  Explicit `vgg_weights` are keyed by identity;
+        the cache entry keeps them alive, so the id is not recycled."""
+        dev = resolve_device(device)
+        key = (config, id(vgg_weights) if vgg_weights is not None else None,
+               str(dev))
+        t = _SHARED_TRAINERS.get(key)
+        if t is None:
+            t = _SHARED_TRAINERS[key] = cls(config, vgg_weights, dev)
+        return t
 
     # ------------------------------------------------------------- state
     def init_state(self, seed: int = 0, gen_state: dict | None = None,
@@ -194,16 +299,17 @@ class Trainer:
         """One fused G+D step; returns (state, losses, figs).  `batch` keys:
         img_dark, gt [B2,S,S,3], mask [B2,S,S,1], and either uv [B2,S,S,3],
         reg [B2,S,S,6], face [B2,S,S,1] or the device-geometry primitives
-        (lm, face_pts, uv_tris, face_tris, reg_tris).  Image planes may
-        come as uint16 (/65535) or uint8 (/255) fixed point.  Losses are
-        0-d tensors on the device (fetching them is the caller's sync)."""
+        (lm, face_pts, uv_tris, face_tris, reg_tris).  Without img_dark,
+        gt holds the raw crops (the device_darken wire) and the step
+        derives the pair.  Image planes may come as uint16 (/65535) or
+        uint8 (/255) fixed point.  Losses are 0-d tensors on the device
+        (fetching them is the caller's sync)."""
         cfg = self.config
         batch = {k: dequantize(v.to(self.device)) for k, v in batch.items()}
-        if "img_dark" not in batch:
-            raise NotImplementedError(
-                "a batch without img_dark needs in-step darkening "
-                "(derive_darkened_views, the tone curve; ROADMAP C1)")
-        gt, img_dark = batch["gt"], batch["img_dark"]
+        if "img_dark" in batch:
+            gt, img_dark = batch["gt"], batch["img_dark"]
+        else:
+            gt, img_dark = derive_darkened_views(generator, batch["gt"])
         if train:
             gt, img_dark = self._saturation_aug(generator, gt, img_dark)
         if "lm" in batch:

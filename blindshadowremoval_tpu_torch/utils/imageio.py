@@ -10,8 +10,8 @@ neither.  Here:
     with `gray=True`;
   * `write_png` writes uint8 gray, RGB or RGBA arrays as given;
   * `resize_linear` is `cv2.resize(img, (w, h), interpolation=INTER_LINEAR)`
-    on float arrays: half-pixel centres, clamped edges, as two
-    interpolation matrices applied in f64.
+    on float arrays: half-pixel centres, clamped edges, two taps an axis
+    in f64.
 """
 
 from __future__ import annotations
@@ -156,31 +156,30 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def _linear_matrix(out_size: int, in_size: int) -> np.ndarray:
-    """[out, in] f64 matrix of cv2's INTER_LINEAR along one axis: output i
-    samples the input at (i + 0.5) * in/out - 0.5, placed in f64 as cv2
-    places it, clamped to [0, in - 1]."""
+def _linear_taps(out_size: int, in_size: int):
+    """cv2's INTER_LINEAR along one axis: output i samples the input at
+    (i + 0.5) * in/out - 0.5, placed in f64 as cv2 places it, clamped to
+    [0, in - 1]; returns the two source indices and the weight of the
+    second."""
     src = ((np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5)
     src = np.clip(src, 0.0, in_size - 1.0)
     j0 = np.floor(src).astype(np.int64)
-    frac = src - j0
-    j1 = np.minimum(j0 + 1, in_size - 1)
-    a = np.zeros((out_size, in_size), np.float64)
-    np.add.at(a, (np.arange(out_size), j0), 1.0 - frac)
-    np.add.at(a, (np.arange(out_size), j1), frac)
-    return a
+    return j0, np.minimum(j0 + 1, in_size - 1), src - j0
+
+
+def _lerp(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    j0, j1, frac = _linear_taps(out_size, x.shape[axis])
+    frac = frac.reshape((-1,) + (1,) * (x.ndim - 1 - axis))
+    a = np.take(x, j0, axis=axis)
+    return a + frac * (np.take(x, j1, axis=axis) - a)
 
 
 def resize_linear(img: np.ndarray, dsize: tuple[int, int]) -> np.ndarray:
     """`cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)` of a float
     [H, W] or [H, W, C] array; dsize is (width, height), as in cv2.
-    Returns f32 ([H', W'] for a 2-D input, as cv2 does)."""
-    img = np.asarray(img)
+    Returns f32 ([H', W'] for a 2-D input, as cv2 does).  Two-tap gathers
+    in f64, rows then columns: no BLAS call, whose thread pool would spin
+    in every parse worker process."""
+    x = np.asarray(img).astype(np.float64)
     w, h = int(dsize[0]), int(dsize[1])
-    a_h = _linear_matrix(h, img.shape[0])
-    a_w = _linear_matrix(w, img.shape[1])
-    x = img.astype(np.float64)
-    rows = (a_h @ x.reshape(x.shape[0], -1)).reshape((h,) + x.shape[1:])
-    # a_w applied to every output row: [w, W] @ [h, W, C] -> [h, w, C]
-    out = a_w @ (rows if rows.ndim == 3 else rows[..., None])
-    return (out if img.ndim == 3 else out[..., 0]).astype(np.float32)
+    return _lerp(_lerp(x, 0, h), 1, w).astype(np.float32)

@@ -15,8 +15,16 @@ import time
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from blindshadowremoval_tpu_torch.utils.imageio import resize_linear, write_png
+
+
+def _host(x) -> np.ndarray:
+    """A numpy array, or a tensor (on any device) fetched as f32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
 
 
 def _to_uint8(img01: np.ndarray) -> np.ndarray:
@@ -90,12 +98,12 @@ class TrainLogger:
     # ---------------------------------------------------------- figures
     def figure_grid(self, figs: Sequence[np.ndarray],
                     size: int | None = None) -> np.ndarray:
-        """Stack [B,H,W,C] tensors into a (len*size, B*size, 3) grid
-        (utils.py:235-253, without the BGR swap)."""
+        """Stack [B,H,W,C] arrays or tensors into a (len*size, B*size, 3)
+        grid (utils.py:235-253, without the BGR swap)."""
         size = size or self.fig_size
         rows = []
         for f in figs:
-            f = np.asarray(f)
+            f = _host(f)
             f = _ensure_rgb3(np.clip(f, 0.0, 1.0))
             row = np.concatenate(
                 [_resize(_to_uint8(f[i]), size) for i in range(f.shape[0])],

@@ -1,8 +1,9 @@
 """Host crop + resize (port of `blindshadowremoval_tpu/utils/native.py`).
 
-Only the numpy version of `crop_resize` is ported; the g++-built loader
-(`native/loader.cc`) waits for ROADMAP item C5.  Sampling: half-pixel
-bilinear over a zero-padded plane.
+Only the numpy version of `crop_resize` is ported, equal bit for bit to
+the JAX package's numpy fallback; the g++-built loader (`native/loader.cc`)
+is ROADMAP item C6.  Sampling: half-pixel bilinear over a zero-padded
+plane.
 """
 
 from __future__ import annotations

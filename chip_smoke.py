@@ -18,8 +18,11 @@ images a pass, on a synthetic UCB tree) with K1 held and timed at the
 evaluation batches, drives the TSM and RGB generators through the same
 entry points (forward goldens, SFW-TSM, TSM video, TSM and RGB UCB, both
 services, both train steps) with K1 held and timed at their batches and
-K1 and K2 held on an RGB step's own operands, and prints one JSON line
-with every kernel and, last,
+K1 and K2 held on an RGB step's own operands, trains end to end through
+`fit` on a synthetic training tree (both train wires, the val pass, the
+UCB probe, the checkpoint restored bitwise, a resume, the trained
+generator served; phase 13, run before phase 12's line), and prints one
+JSON line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -28,6 +31,7 @@ is absent.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
 import io
 import json
@@ -36,7 +40,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +54,8 @@ from blindshadowremoval_tpu_torch.config import get_config
 from blindshadowremoval_tpu_torch.data.dataset import Dataset
 from blindshadowremoval_tpu_torch.data.synthesis import (
     compose_from_draws,
+    darkened_views_from_draws,
+    derive_darkened_views,
     draw_compose,
 )
 from blindshadowremoval_tpu_torch.eval.evaluators import (
@@ -97,15 +105,19 @@ from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     nonlocal_attention_reference,
 )
 from blindshadowremoval_tpu_torch.ops.filters import find_edge
+from blindshadowremoval_tpu_torch.ops.image import dequantize
 from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
 from blindshadowremoval_tpu_torch.ops.image import rgb_to_grayscale
 from blindshadowremoval_tpu_torch.ops.image import ssim as ssim_fn
+from blindshadowremoval_tpu_torch.ops.tonecurve import draw_face_darken
+from blindshadowremoval_tpu_torch.train import loop as train_loop
 from blindshadowremoval_tpu_torch.train import trainer as trainer_module
 from blindshadowremoval_tpu_torch.train.losses import (
     multi_scale_gradient_loss,
     reconstruction_losses,
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
+from blindshadowremoval_tpu_torch.utils.checkpoint import CheckpointManager
 from blindshadowremoval_tpu_torch.utils.imageio import read_png, write_png
 
 ROOT = Path(__file__).resolve().parent
@@ -686,7 +698,7 @@ def main() -> int:
         K2_TIMED[0]]
 
     phase("8 train: the GSC GAN train step at full width, the train path")
-    k1_train, k2_train = train_full_width(dev, smi)
+    k1_train, k2_train, bare_step_ms = train_full_width(dev, smi)
 
     phase("9 the card's f32 train step against the CPU's")
     card_vs_cpu_step(dev)
@@ -701,11 +713,22 @@ def main() -> int:
         var = variants_path(dev, smi, work)
     max_err = max(max_err, var["k1_err"])
 
+    phase("13 fit: training end to end on the card")
+    with tempfile.TemporaryDirectory() as work:
+        fit, fit_k1_err, fit_k2_err = fit_path(dev, smi, work,
+                                               bare_step_ms)
+    max_err = max(max_err, fit_k1_err)
+    k2_err = max(k2_err, fit_k2_err)
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
           f"{sum(eval_launches.values())}; variants "
-          + ", ".join(f"{k} {v}" for k, v in var["launches"].items()))
+          + ", ".join(f"{k} {v}" for k, v in var["launches"].items())
+          + "; fit " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
+                                 for k, v in fit.items()))
+    fit_k1 = sum(v[0] for v in fit.values())
+    fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
                  {**timed, **var["k1"]}.items()]
     print(json.dumps({"kernels": [{
@@ -713,7 +736,7 @@ def main() -> int:
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:70",
-        "launches": main_launches,
+        "launches": main_launches + fit_k1,
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -724,14 +747,15 @@ def main() -> int:
                              **{f"eval {k}": v
                                 for k, v in eval_launches.items()},
                              **{k: v if isinstance(v, int) else v[0]
-                                for k, v in var["launches"].items()}},
+                                for k, v in var["launches"].items()},
+                             **{f"fit {k}": v[0] for k, v in fit.items()}},
         "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn_bwd.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:117",
-        "launches": k2_train,
+        "launches": k2_train + fit_k2,
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": bwd_plain_ms,
@@ -740,7 +764,8 @@ def main() -> int:
         "library_ms": sdpa_bwd_ms,
         "launches_by_path": {"train": k2_train,
                              "tsm train": var["launches"]["tsm train"][1],
-                             "rgb train": var["launches"]["rgb train"][1]},
+                             "rgb train": var["launches"]["rgb train"][1],
+                             **{f"fit {k}": v[1] for k, v in fit.items()}},
         "shapes": [dict(shape=list(shape), ms=rec[0], plain_ms=rec[1],
                         library_ms=rec[2], bound_ms=rec[3], bound_by=rec[4])
                    for shape, rec in k2_timed.items()]
@@ -1658,6 +1683,43 @@ def k2_operands(gen, shape, dtype):
     return [x.to(dtype) for x in (t, p, g, do)]
 
 
+def check_k2_case(gen, shape, dtype) -> float:
+    """K2 (through the autograd Function, after K1) at `shape` against the
+    plain backward and against autograd through the plain forward in f32,
+    each gradient within bwd_tolerance; exits on a disagreement.  Returns
+    the max abs error."""
+    t, p, g, do = k2_operands(gen, shape, dtype)
+    leaves = [x.clone().requires_grad_() for x in (t, p, g)]
+    k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
+    grads = torch.autograd.grad(nonlocal_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    launched = (nonlocal_attention.launches - k1,
+                nonlocal_attention_bwd.launches - k2)
+    ref = nonlocal_attention_bwd_reference(t, p, g, do)
+    leaves32 = [x.float().requires_grad_() for x in (t, p, g)]
+    auto = torch.autograd.grad(nonlocal_attention_reference(*leaves32),
+                               leaves32, do.float())
+    ok, max_err = launched == (1, 1), 0.0
+    for name, a, r, au in zip(("dtheta", "dphi", "dg"), grads, ref, auto):
+        atol, rtol = bwd_tolerance(r, dtype)
+        err = (a.float() - r.float()).abs().max().item()
+        ex, ex_auto = _excess(a, r, rtol), _excess(a, au, rtol)
+        good = (bool(torch.isfinite(a).all()) and a.dtype == dtype
+                and ex <= atol and ex_auto <= atol)
+        ok = ok and good
+        max_err = max(max_err, err)
+        print(f"{shape} {str(dtype):15s} {name:6s} max_abs_err {err:.3e}, "
+              f"max |ref| {r.float().abs().max().item():.3f}, "
+              f"max(err - {rtol:.3g}|ref|) {ex:.3e} vs the plain "
+              f"backward, {ex_auto:.3e} vs autograd of the plain "
+              f"forward (atol {atol:.3g}) {'ok' if good else 'FAIL'}",
+              flush=True)
+    if not ok:
+        raise SystemExit(f"K2 disagrees with its plain backward at "
+                         f"{shape} (launches K1, K2: {launched})")
+    return max_err
+
+
 def check_k2(dev):
     """K2 (through the autograd Function, after K1) against the plain
     backward and against autograd through the plain forward in f32, at
@@ -1665,37 +1727,8 @@ def check_k2(dev):
     plain backward, at K2_TIMED.  Returns (max_abs_err, {shape: (ms,
     plain_ms, library_ms, bound_ms, bound_by)})."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    max_err = 0.0
-    for shape, dtype in BWD_CASES:
-        t, p, g, do = k2_operands(gen, shape, dtype)
-        leaves = [x.clone().requires_grad_() for x in (t, p, g)]
-        k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
-        grads = torch.autograd.grad(nonlocal_attention(*leaves), leaves, do)
-        torch.cuda.synchronize()
-        launched = (nonlocal_attention.launches - k1,
-                    nonlocal_attention_bwd.launches - k2)
-        ref = nonlocal_attention_bwd_reference(t, p, g, do)
-        leaves32 = [x.float().requires_grad_() for x in (t, p, g)]
-        auto = torch.autograd.grad(nonlocal_attention_reference(*leaves32),
-                                   leaves32, do.float())
-        ok = launched == (1, 1)
-        for name, a, r, au in zip(("dtheta", "dphi", "dg"), grads, ref, auto):
-            atol, rtol = bwd_tolerance(r, dtype)
-            err = (a.float() - r.float()).abs().max().item()
-            ex, ex_auto = _excess(a, r, rtol), _excess(a, au, rtol)
-            good = (bool(torch.isfinite(a).all()) and a.dtype == dtype
-                    and ex <= atol and ex_auto <= atol)
-            ok = ok and good
-            max_err = max(max_err, err)
-            print(f"{shape} {str(dtype):15s} {name:6s} max_abs_err {err:.3e}, "
-                  f"max |ref| {r.float().abs().max().item():.3f}, "
-                  f"max(err - {rtol:.3g}|ref|) {ex:.3e} vs the plain "
-                  f"backward, {ex_auto:.3e} vs autograd of the plain "
-                  f"forward (atol {atol:.3g}) {'ok' if good else 'FAIL'}",
-                  flush=True)
-        if not ok:
-            raise SystemExit(f"K2 disagrees with its plain backward at "
-                             f"{shape} (launches K1, K2: {launched})")
+    max_err = max(check_k2_case(gen, shape, dtype)
+                  for shape, dtype in BWD_CASES)
     timed = {}
     for b, n, d in K2_TIMED:
         t, p, g, do = k2_operands(gen, (b, n, d), torch.bfloat16)
@@ -1762,7 +1795,7 @@ def train_full_width(dev, smi: str):
     the timed steps by CUDA events, with K1 and K2 counted.  Checks finite
     losses, moving G and D parameters and 6 launches of each kernel a step,
     then profiles one step.  Returns the (K1, K2) launches of the timed
-    steps."""
+    steps and the ms a step."""
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("train", batch_size=TRAIN_BATCH,
@@ -1848,7 +1881,7 @@ def train_full_width(dev, smi: str):
         print(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<5d} {kind}")
     del state, trainer, batch
     torch.cuda.empty_cache()
-    return k1, k2
+    return k1, k2, step_ms
 
 
 def forward_stages(state, batch, gen, step_ms: float) -> None:
@@ -2043,6 +2076,450 @@ def card_vs_cpu_step(dev):
         raise SystemExit("the card's train step disagrees with the CPU's")
     if not all(rejected[label] for label, _, _, fault in cases if fault):
         raise SystemExit("the limits let a planted fault through")
+
+
+# the fit path (phase 13): fit on a synthetic training tree at full width
+FIT_IDENTITIES = 8           # 6 to train on, 2 to validate on
+FIT_FRAMES = 4
+FIT_IMAGE = 512
+FIT_MASKS = 16               # the occluder library
+FIT_STEPS = 10               # a val pass of FIT_STEPS // 10 = 1 step
+FIT_PROBE_IMAGES = 4         # the UCB probe of select_best
+FIT_HOST_BATCH = 4           # the host wires: the host rasterizer takes
+FIT_HOST_STEPS = 2           # ~1.1 s of pool time a sample
+FIT_RESUME_STEPS = 3         # the resumed epoch, profiled
+
+
+def synthetic_train_tree(root: str, seed: int = 0):
+    """A training tree under `root`: `train/id<k>/<f>.png|.npy` (6
+    identities) and `val/...` (2), FIT_FRAMES frames of FIT_IMAGE^2 each,
+    a colour ramp in the identity's tint with noise, and LM_REF scaled,
+    shifted and jittered into it; `masks/`, FIT_MASKS occluder PNGs
+    (ellipses, half of them with a bar).  Returns (train glob, val glob,
+    mask dir)."""
+    rng = np.random.default_rng(seed)
+    n = FIT_IMAGE
+    yy, xx = np.mgrid[:n, :n] / n
+    ramp = np.stack([yy, xx, yy * xx], -1)
+    for k in range(FIT_IDENTITIES):
+        split = "train" if k < FIT_IDENTITIES - 2 else "val"
+        d = os.path.join(root, split, f"id{k}")
+        os.makedirs(d)
+        tint = rng.uniform(0.2, 0.6, 3)
+        for f in range(FIT_FRAMES):
+            img = tint + 0.3 * ramp + rng.normal(0.0, 0.05, (n, n, 3))
+            write_png(os.path.join(d, f"{f}.png"),
+                      np.rint(np.clip(img, 0, 1) * 255).astype(np.uint8),
+                      level=1)
+            # 220-320 px faces at 512 px, as synthetic_requests places them
+            scale = n * rng.uniform(0.43, 0.625)
+            x0, y0 = rng.uniform(0.12 * n, 0.88 * n - scale, size=2)
+            lm = LM_REF * scale + np.array([x0, y0]) + rng.normal(
+                scale=1.5, size=LM_REF.shape)
+            np.save(os.path.join(d, f"{f}.npy"), lm.astype(np.float32))
+    masks = os.path.join(root, "masks")
+    os.makedirs(masks)
+    yy, xx = np.mgrid[:256, :256] / 256
+    for i in range(FIT_MASKS):
+        cy, cx = rng.uniform(0.3, 0.7, 2)
+        ry, rx = rng.uniform(0.1, 0.35, 2)
+        m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+        if i % 2:
+            m |= np.abs(xx - rng.uniform(0.2, 0.8)) < rng.uniform(0.02, 0.08)
+        write_png(os.path.join(masks, f"{i}.png"), (m * 255).astype(np.uint8))
+    return (os.path.join(root, "train", "*"), os.path.join(root, "val", "*"),
+            masks)
+
+
+def parse_ms(cfg, samples: int, workers: int) -> float:
+    """ms a sample from `cfg`'s train iterator with `workers` parse
+    processes, over `samples` after the 2 * workers it starts with."""
+    it = iter(Dataset(cfg, "train", workers=workers))
+    try:
+        for _ in range(2 * workers):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(samples):
+            next(it)
+        return 1e3 * (time.perf_counter() - t0) / samples
+    finally:
+        it.close()
+
+
+def state_differences(a, b) -> list[str]:
+    """Names of what differs (not bitwise equal) between two TrainStates:
+    the step, G, D and VGG tensors, both Adam states, the LR count."""
+    sa, sb = a.state_dict(), b.state_dict()
+    out = [k for k in ("step", "lr_count") if sa[k] != sb[k]]
+    for net in ("gen", "disc", "vgg"):
+        out += [f"{net} {k}" for k in sa[net]
+                if not torch.equal(sa[net][k], sb[net][k])]
+    for opt in ("gen_opt", "disc_opt"):
+        if sa[opt]["count"] != sb[opt]["count"]:
+            out.append(f"{opt} count")
+        for moment in ("exp_avg", "exp_avg_sq"):
+            ma, mb = sa[opt][moment], sb[opt][moment]
+            if ma.keys() != mb.keys():
+                out.append(f"{opt} {moment} keys")
+                continue
+            out += [f"{opt} {moment} {k}" for k in ma
+                    if not torch.equal(ma[k], mb[k])]
+    return out
+
+
+def run_fit(cfg, label: str, dev, expect: tuple, smi: str, **kw):
+    """`fit` of `cfg` on its train (and val) tree with K1 and K2 counted;
+    fails unless they launched `expect` times, every epoch's last losses
+    are finite and the parameters are finite.  Prints each epoch's step
+    time, prefetcher wait and losses.  Returns (state, stats, launches)."""
+    stats = {}
+    val = Dataset(cfg, "val", seed=1) if cfg.data_dirs_val else None
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        state = train_loop.fit(cfg, Dataset(cfg, "train"), val, seed=0,
+                               device=dev, stats=stats, **kw)
+    wall = time.perf_counter() - t0
+    launched = (nonlocal_attention.launches, nonlocal_attention_bwd.launches)
+    views = 2 * cfg.batch_size
+    for line in log.getvalue().splitlines():
+        if line.startswith(("probe:", "Restore from")):
+            print(f"{label}: {line}")
+    for ep in stats["epochs"]:
+        ms = 1e3 * ep["step_s"] / ep["steps"]
+        print(f"{label} epoch {ep['epoch']}: {ep['steps']} steps of {views} "
+              f"views, {ms:.1f} ms/step ({views * 1e3 / ms:.1f} views/s, "
+              f"host clock, synchronized at the epoch's end), waiting on "
+              f"the prefetcher {100 * ep['wait_s'] / ep['step_s']:.1f}% of "
+              f"it; save {ep['save_s']:.2f} s, probe {ep['probe_s']:.2f} s, "
+              f"val {ep['val_s']:.2f} s ({smi}); last losses " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in ep["losses"].items()),
+              flush=True)
+        if not all(np.isfinite(v) for v in ep["losses"].values()):
+            raise SystemExit(f"{label}: a loss is not finite")
+    print(f"{label}: {wall:.1f} s wall; K1, K2 launches {launched} "
+          f"(expected {expect})", flush=True)
+    if launched != expect:
+        raise SystemExit(f"{label}: K1, K2 launches {launched}, expected "
+                         f"{expect}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.gen.parameters()):
+        raise SystemExit(f"{label}: a generator parameter is not finite")
+    return state, stats, launched
+
+
+def fit_window_idle(prof, name: str = "fit.steps"):
+    """(window ms, kernel ms, copy ms) of the device inside the first
+    CPU-side `name` range of a profile: kernels and copies that started in
+    it (the range ends in a synchronize)."""
+    events = prof.events()
+    window = next(e for e in events if e.name == name
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+    t0, t1 = window.time_range.start, window.time_range.end
+    kern = copies = 0.0
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.name == name
+                or not t0 <= e.time_range.start < t1):
+            continue
+        us = e.time_range.elapsed_us()
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += us
+        else:
+            kern += us
+    return (t1 - t0) / 1e3, kern / 1e3, copies / 1e3
+
+
+def record_attention_shapes():
+    """Records (wrapper, shape, dtype) of every K1 and K2 launch from now
+    on, at the wrappers' contract check.  Returns (the set it fills, a
+    function that stops the recording)."""
+    seen, check = set(), attn_module._check
+
+    def recording(name, tensors):
+        first = next(iter(tensors.values()))
+        seen.add((name, tuple(first.shape), first.dtype))
+        return check(name, tensors)
+
+    attn_module._check = recording
+
+    def stop():
+        attn_module._check = check
+
+    return seen, stop
+
+
+def fit_path(dev, smi: str, work: str, bare_step_ms: float):
+    """Phase 13: training end to end through `fit`, at 256 px, n_res=6,
+    bf16, batch TRAIN_BATCH, on a synthetic training tree: fit A on the
+    JAX CLI's default wires (compact uint8 ingress, device geometry,
+    device darkening) for 2 epochs with the val pass and select_best's
+    UCB probe; the checkpoint restored bitwise; a resume to a third epoch
+    of FIT_RESUME_STEPS steps, profiled; fit B on the host wires (host
+    maps, host tone curve, uint16); the trained generator served from
+    `restore_eval`, the card's bf16 against the CPU's f32; then K1 and K2
+    against their plain versions at every shape the path gave them.  And
+    the tone curve on the card with TF32 allowed against the CPU.  Returns
+    ({sub-path: (K1, K2 launches)}, K1's and K2's max abs errors)."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    train_glob, val_glob, masks = synthetic_train_tree(
+        os.path.join(work, "data"))
+    ucb = synthetic_ucb_tree(os.path.join(work, "ucb"),
+                             n_images=FIT_PROBE_IMAGES)
+    base = dict(compute_dtype="bfloat16", vgg_dtype="bfloat16", remat=False,
+                data_dirs=(train_glob,), shadow_mask_dir=masks,
+                data_dirs_test=(os.path.join(ucb, "input", "*"),),
+                part_mask_root=ucb, img_log_freq=FIT_STEPS,
+                txt_log_freq=FIT_STEPS)
+    device_wires = dict(compact_ingress=True, ingress_u8=True,
+                        device_geometry=True, device_darken=True)
+    host_wires = dict(compact_ingress=True, ingress_u8=False,
+                      device_geometry=False, device_darken=False)
+    ckpt = os.path.join(work, "ckpt")
+    cfg_a = get_config("train", batch_size=TRAIN_BATCH,
+                       steps_per_epoch=FIT_STEPS, max_epoch=2,
+                       data_dirs_val=(val_glob,), checkpoint_dir=ckpt,
+                       **base, **device_wires)
+    cfg_b = get_config("train", batch_size=FIT_HOST_BATCH,
+                       steps_per_epoch=FIT_HOST_STEPS, max_epoch=1,
+                       checkpoint_dir=os.path.join(work, "ckpt_host"),
+                       **base, **host_wires)
+    print(f"training tree: {FIT_IDENTITIES - 2} + 2 identities x "
+          f"{FIT_FRAMES} frames of {FIT_IMAGE} px, {FIT_MASKS} occluder "
+          f"PNGs, {FIT_PROBE_IMAGES} UCB probe images; written in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # --- the host parse on each wire from the default pool; on the device
+    # wires also from one worker process
+    workers = Dataset(cfg_a, "train").workers
+    one = parse_ms(cfg_a, 8, 1)
+    for label, cfg, n_pool in (("device wires", cfg_a, 48),
+                               ("host wires", cfg_b, workers)):
+        pool = parse_ms(cfg, n_pool, workers)
+        print(f"host parse, {label}: {pool:.1f} ms a sample from {workers} "
+              f"worker processes on {os.cpu_count()} cores, so "
+              f"{TRAIN_BATCH * pool:.0f} ms a batch of {TRAIN_BATCH}"
+              + (f"; {one:.1f} ms from one" if cfg is cfg_a else "")
+              + f" ({smi})", flush=True)
+
+    # --- the tone curve on the card with TF32 allowed, against the CPU
+    ds = Dataset(cfg_a, "train")
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(np.concatenate(
+        [ds.parse_train(ds.name_list[i % len(ds.name_list)], rng=rng)["gt"]
+         for i in range(8)]))
+    g1, g2 = draw_face_darken(torch.Generator().manual_seed(0), 8, "cpu")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = darkened_views_from_draws(g1.to(dev), g2.to(dev), raw.to(dev))
+        a = raw[0::2].reshape(8, -1, 3).to(dev)
+        ata_tf32 = a.transpose(1, 2) @ a         # what an f32 product gives
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    cpu = darkened_views_from_draws(g1, g2, raw)
+    err = max(float((c.cpu() - r).abs().max()) for c, r in zip(card, cpu))
+    ata = a.double().transpose(1, 2) @ a.double()
+    tf32_err = float(((ata_tf32.double() - ata).abs()
+                      / ata.abs().amax(dim=(1, 2), keepdim=True)).max())
+    print(f"tone curve on 16 crops, card with TF32 allowed vs CPU: max "
+          f"|d| {err:.2e} (bar 1e-5); the normal equations as a TF32 "
+          f"product would be {tf32_err:.1e} of their largest entry off",
+          flush=True)
+    if not err <= 1e-5:
+        raise SystemExit("the tone curve on the card disagrees with the CPU")
+    del card, a, ata, ata_tf32, ds
+
+    # --- fit A, the CLI's default wires, 2 epochs
+    seen, stop_recording = record_attention_shapes()
+    k = ATTN_CALLS_PER_FORWARD
+    per_epoch = (k * (FIT_STEPS + FIT_STEPS // 10 + FIT_PROBE_IMAGES),
+                 k * FIT_STEPS)
+    launches = {}
+    state_a, stats_a, launches["A"] = run_fit(
+        cfg_a, "fit A", dev, tuple(2 * n for n in per_epoch), smi,
+        select_best=True, probe_images=FIT_PROBE_IMAGES)
+    mgr = CheckpointManager(ckpt, device=dev)
+    if state_a.step != 2 * FIT_STEPS or mgr.all_steps() != [1, 2]:
+        raise SystemExit(f"fit A: step {state_a.step}, checkpoints "
+                         f"{mgr.all_steps()}")
+    best = mgr.best_record()
+    print(f"fit A: checkpoints {mgr.all_steps()}, best {best}", flush=True)
+    ep2 = stats_a["epochs"][-1]
+    fit_ms = 1e3 * ep2["step_s"] / ep2["steps"]
+    print(f"fit A, epoch 2: {fit_ms:.1f} ms/step against the bare step's "
+          f"{bare_step_ms:.1f} (phase 8, CUDA events), "
+          f"{fit_ms / bare_step_ms:.2f}x; waiting on the prefetcher "
+          f"{100 * ep2['wait_s'] / ep2['step_s']:.1f}% of the step loop "
+          f"({smi})", flush=True)
+
+    # --- the checkpoint restores bitwise
+    template = Trainer(cfg_a, device=dev).init_state(seed=1)
+    restored, epoch = mgr.restore_latest(template)
+    differ = state_differences(state_a, restored)
+    print(f"restored epoch {epoch}: {len(differ)} tensors or counts differ "
+          f"from the saved state (G, D, VGG, both Adam states, step)",
+          flush=True)
+    if epoch != 2 or differ:
+        raise SystemExit(f"restore: epoch {epoch}, differing {differ[:5]}")
+    saved_gen = {k: v.clone() for k, v in state_a.gen.state_dict().items()}
+    del template, restored
+
+    # --- the bare step on a batch of the device wires (u8 raw crops,
+    # landmarks and topologies), as phase 8 times it on host maps, and the
+    # two stages those wires move onto the device
+    it = iter(Dataset(cfg_a, "train"))      # closed after the next timing
+    host = train_loop._assemble(it, cfg_a.batch_size, True, True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    trainer = Trainer.shared(cfg_a, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    wire_ms = cuda_ms(lambda: trainer.train_step(state_a, batch, gen),
+                      iters=5, warmup=2)
+    with torch.no_grad():
+        geo_ms = cuda_ms(lambda: device_geometry_maps(
+            batch["lm"], batch["face_pts"], batch["uv_tris"],
+            batch["face_tris"], batch["reg_tris"], cfg_a.img_size),
+            iters=3, warmup=1)
+        raw = dequantize(batch["gt"])
+        dark_ms = cuda_ms(lambda: derive_darkened_views(gen, raw), iters=3,
+                          warmup=1)
+    print(f"the bare step on a device-wire batch: {wire_ms:.1f} ms/step "
+          f"(CUDA events, 5 steps after 2; fit A's epoch 2 "
+          f"{fit_ms / wire_ms:.2f}x of it), against phase 8's "
+          f"{bare_step_ms:.1f} on host maps; on the device: geometry maps "
+          f"{geo_ms:.1f} ms, tone curve {dark_ms:.1f} ms a batch ({smi})",
+          flush=True)
+    # the same step beside the parse pool and the batch assembly: the
+    # host work fit's prefetcher does while a step runs
+    done = threading.Event()
+
+    def feed():
+        while not done.is_set():
+            train_loop._assemble(it, cfg_a.batch_size, True, True)
+
+    feeder = threading.Thread(target=feed)
+    feeder.start()
+    try:
+        time.sleep(1.0)
+        beside_ms = cuda_ms(lambda: trainer.train_step(state_a, batch, gen),
+                            iters=5, warmup=1)
+    finally:
+        done.set()
+        feeder.join()
+        it.close()
+    launches["bare device wires"] = (nonlocal_attention.launches,
+                                     nonlocal_attention_bwd.launches)
+    print(f"the same step beside the default {workers} parse processes and "
+          f"a thread assembling their batches: {beside_ms:.1f} ms/step "
+          f"(CUDA events, 5 steps after 1; {beside_ms / wire_ms:.2f}x of "
+          f"it alone; fit A's epoch 2 {fit_ms / beside_ms:.2f}x of it); "
+          f"K1, K2 launches in the 13 bare steps "
+          f"{launches['bare device wires']} ({smi})", flush=True)
+    if launches["bare device wires"] != (13 * k, 13 * k):
+        raise SystemExit("bare device-wire steps: K1, K2 launches "
+                         f"{launches['bare device wires']}")
+    del state_a, batch, raw, trainer
+    torch.cuda.empty_cache()
+
+    # --- resume: max_epoch raised, one more epoch (of FIT_RESUME_STEPS
+    # steps) from the saved one, profiled: the device's idle share
+    cfg_r = dataclasses.replace(cfg_a, max_epoch=3,
+                                steps_per_epoch=FIT_RESUME_STEPS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state_r, stats_r, launches["resume"] = run_fit(
+            cfg_r, "resume", dev,
+            (k * (FIT_RESUME_STEPS + FIT_PROBE_IMAGES),
+             k * FIT_RESUME_STEPS), smi, select_best=True,
+            probe_images=FIT_PROBE_IMAGES)
+    window_ms, kern_ms, copy_ms = fit_window_idle(prof)
+    # the profiler's host-side recording of every launch stretches the
+    # window; fit A's unprofiled second epoch runs the same steps
+    step_kern_ms = kern_ms / FIT_RESUME_STEPS
+    print(f"resume, its {FIT_RESUME_STEPS} steps profiled: device kernels "
+          f"{kern_ms:.1f} ms, {step_kern_ms:.1f} a step, copies "
+          f"{copy_ms:.1f} ms; the device idles "
+          f"{100 * (1 - step_kern_ms / fit_ms):.1f}% of fit A's unprofiled "
+          f"{fit_ms:.1f} ms step, {100 * (1 - kern_ms / window_ms):.1f}% "
+          f"of the profiled window ({window_ms:.1f} ms from the first step "
+          f"to the synchronize, profiler on) ({smi})", flush=True)
+    moved = sum(not torch.equal(v, saved_gen[k])
+                for k, v in state_r.gen.state_dict().items())
+    print(f"resume: epochs run {[e['epoch'] for e in stats_r['epochs']]}, "
+          f"step {state_r.step}, generator tensors moved {moved}/"
+          f"{len(saved_gen)}", flush=True)
+    if ([e["epoch"] for e in stats_r["epochs"]] != [3] or moved == 0
+            or state_r.step != 2 * FIT_STEPS + FIT_RESUME_STEPS):
+        raise SystemExit("resume did not continue from epoch 2")
+    del state_r, saved_gen, prof
+    torch.cuda.empty_cache()
+
+    # --- fit B, the host wires
+    state_b, _, launches["B"] = run_fit(
+        cfg_b, "fit B (host maps, host tone curve, uint16)", dev,
+        (k * FIT_HOST_STEPS, k * FIT_HOST_STEPS), smi)
+    del state_b
+    torch.cuda.empty_cache()
+
+    # --- from training to serving: the newest checkpoint's generator
+    sd, step = CheckpointManager(ckpt).restore_eval()
+    svc = ShadowRemovalService(
+        get_config(compute_dtype="bfloat16", fold_bn=True,
+                   egress_dtype="bfloat16"), sd, batch_size=8, device=dev)
+    images, lms = synthetic_requests(4, seed=3)
+    nonlocal_attention.launches = 0
+    results = svc.remove_shadows(images, lms)
+    launches["serve"] = (nonlocal_attention.launches, 0)
+    cpu = ShadowRemovalService(get_config(compute_dtype="float32"), sd,
+                               batch_size=2, device="cpu")
+    scores = [psnr(results[i]["pred"], r["pred"]) for i, r in
+              enumerate(cpu.remove_shadows(images[:2], lms[:2]))]
+    print(f"served the epoch-{step} generator: {len(results)} requests, K1 "
+          f"launches {launches['serve'][0]}; card bf16 vs CPU f32 pred PSNR "
+          + ", ".join(f"{x:.2f}" for x in scores) + " dB (bar 40 dB)",
+          flush=True)
+    if not all(x >= 40.0 for x in scores):
+        raise SystemExit("the trained generator served on the card "
+                         "disagrees with the CPU")
+    if launches["serve"][0] != k:
+        raise SystemExit(f"serve: {launches['serve'][0]} K1 launches")
+    stop_recording()
+
+    # the resumed epoch's UCB probe (the card, bf16) against the same probe
+    # of the same generator on the CPU in f32.  Phase 10 holds UCB to the
+    # CPU in f32 and records bf16's rounding only; this bar catches gross
+    # faults (a composite from the wrong mask or image moves it by dBs)
+    card_psnr = stats_r["epochs"][0]["probe"]
+    cpu_probe = train_loop._UCBProbe(
+        dataclasses.replace(cfg_r, compute_dtype="float32"),
+        FIT_PROBE_IMAGES, device="cpu")
+    cpu_psnr = cpu_probe(types.SimpleNamespace(
+        gen=types.SimpleNamespace(state_dict=lambda: sd)))
+    print(f"the epoch-{step} UCB probe: card bf16 {card_psnr:.4f} dB, CPU "
+          f"f32 {cpu_psnr:.4f} dB, |d| {abs(card_psnr - cpu_psnr):.2e} "
+          f"(bar 1 dB)", flush=True)
+    if not abs(card_psnr - cpu_psnr) <= 1.0:
+        raise SystemExit("the UCB probe on the card disagrees with the CPU")
+
+    # --- K1 and K2 at every shape the path gave them
+    print("K1 and K2 at the shapes the fit path gave them, against their "
+          "plain versions:", flush=True)
+    check_gen = torch.Generator(device=dev).manual_seed(13)
+    k1_err = k2_err = 0.0
+    for name, shape, dtype in sorted(seen, key=str):
+        if name == "nonlocal_attention":
+            k1_err = max(k1_err, check_k1(check_gen, shape, dtype))
+        else:
+            k2_err = max(k2_err, check_k2_case(check_gen, shape, dtype))
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, k1_err, k2_err
 
 
 if __name__ == "__main__":

@@ -271,8 +271,16 @@ def test_prefetch_stops_producer_on_early_exit():
     assert len(produced) < 10
 
 
-def test_unported_parsers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
-        Dataset(get_config("train"), "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
-        Dataset(get_config("train"), "val")
+def test_unported_parsers_raise(tmp_path):
+    """The train and val modes, which raised before the train parser was
+    ported, now list their identity folders as the JAX package does
+    (tests/test_torch_train_data.py holds their parser against JAX's)."""
+    for ident in ("a", "b"):
+        os.makedirs(tmp_path / ident)
+    kw = dict(data_dirs=(str(tmp_path / "a"),),
+              data_dirs_val=(str(tmp_path / "*"),))
+    for mode in ("train", "val"):
+        ours = Dataset(get_config("train", **kw), mode)
+        theirs = JaxDataset(jax_config("train", **kw), mode)
+        assert sorted(ours.name_list) == sorted(theirs.name_list)
+        assert ours.name_list

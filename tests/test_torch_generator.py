@@ -171,12 +171,11 @@ def test_config_rejects_unported_options():
     for kw in (dict(int8_head=True), dict(s2d_convs=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP F4"):
             get_config(**kw)
-    # the train preset is ported; its device-darkening wire waits for the
-    # tone curve, its uint8 wire for the train loop
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        get_config("train", device_darken=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
-        get_config("train", compact_ingress=True, ingress_u8=True)
+    # the train preset's device-darkening and uint8 wires are ported:
+    # both build
+    assert get_config("train", device_darken=True).device_darken
+    assert get_config("train", compact_ingress=True,
+                      ingress_u8=True).ingress_u8
     with pytest.raises(ValueError, match="unknown variant"):
         get_config(variant="vgg")
     # the SFW presets build the TSM variant, as in the JAX package; its

@@ -249,14 +249,23 @@ def test_unpinned_step_on_device_geometry_batch():
 
 
 def test_step_refuses_what_is_not_ported():
-    trainer = ttrainer.Trainer(get_config("train", **CFG), device="cpu")
+    """A batch without img_dark (the device_darken wire) and the uint8
+    wire are ported now: the step takes both; the step still refuses a
+    CUDA default without a card."""
+    trainer = ttrainer.Trainer(
+        get_config("train", device_darken=True, compact_ingress=True,
+                   ingress_u8=True, **CFG), device="cpu")
     tstate = trainer.init_state(seed=0)
-    batch = _tensors(_batch())
+    batch = _batch()
     del batch["img_dark"]
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        trainer.train_step(tstate, batch, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
-        get_config("train", compact_ingress=True, ingress_u8=True)
+    for k in ("gt", "mask"):
+        batch[k] = np.rint(np.clip(batch[k], 0, 1) * 255).astype(np.uint8)
+    tstate, losses, figs = trainer.train_step(
+        tstate, {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.Generator().manual_seed(0))
+    assert tstate.step == 1
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert figs["gt"].dtype == torch.float32
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")
