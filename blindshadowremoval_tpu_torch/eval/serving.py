@@ -6,18 +6,26 @@ the host, stacked into fixed-size batches (the tail batch padded), sent to
 the device, run through the generator, clipped and face-gated there, and
 fetched back.
 
+`BatchingFrontend` coalesces single requests that arrive at any time into
+the service's batches.
+
 Usage:
     svc = ShadowRemovalService(cfg, state_dict, batch_size=64)
     outputs = svc.remove_shadows(images, landmarks)   # N images in, N out
+    with BatchingFrontend(svc, max_delay_ms=5.0) as fe:
+        result = fe.submit(image, landmarks).result()
 
-Not ported yet: the `mesh` option (ROADMAP F1), int8 calibration (F4) and
-the `BatchingFrontend` (A6's second half).
+Not ported yet: the `mesh` option (ROADMAP F1) and int8 calibration (F4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -173,6 +181,172 @@ class ShadowRemovalService:
             chunk = views[start:start + bs]
             results.extend(self.forward_staged(self.stage(chunk), chunk))
         return results
+
+
+class BatchingFrontend:
+    """Dynamic request batching over a ShadowRemovalService (port of the
+    JAX package's `eval/serving.py:BatchingFrontend`).
+
+    `submit()` returns a Future at once.  A collector thread assembles
+    batches of up to `max_batch` requests (default: the service's batch
+    size) or whatever arrived within `max_delay_ms` of a batch's first
+    request, preprocesses each request (a bad one fails only its own
+    future) and stages the batch; a dispatcher thread runs the forward, so
+    the collector prepares batch i+1 while batch i runs (a depth-1
+    pipeline of `stage` and `forward_staged`).  Batches reach the device in
+    arrival order from one thread, so the service needs no lock.
+
+    If the collector ever exits on an error outside the per-request
+    handling, the frontend closes itself: the futures of the batch in hand
+    and every queued future fail with that error, and later submits raise.
+    (The JAX package's collector only signals its dispatcher then, and
+    waiters hang.)"""
+
+    def __init__(self, service: ShadowRemovalService,
+                 max_batch: Optional[int] = None,
+                 max_delay_ms: float = 5.0):
+        self._service = service
+        self._max_batch = int(max_batch or service.batch_size)
+        if self._max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self._max_delay = float(max_delay_ms) / 1000.0
+        self._q: queue.Queue = queue.Queue()
+        self._closed = threading.Event()
+        # serializes submit's closed check and enqueue against the flag
+        # going up, so no request lands in a queue nobody drains
+        self._submit_lock = threading.Lock()
+        self.batches_dispatched = 0
+        self.requests_served = 0
+        self._dispatch_q: queue.Queue = queue.Queue(maxsize=1)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="bsr-serving-batcher")
+        self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                            daemon=True,
+                                            name="bsr-serving-dispatch")
+        self._thread.start()
+        self._dispatcher.start()
+
+    # ------------------------------------------------------------ client
+    def submit(self, image: np.ndarray, landmarks: np.ndarray) -> Future:
+        """Enqueue one request; the Future's result is the service's
+        per-image dict ({'pred', 'mask_pred', 'box', 'img'})."""
+        with self._submit_lock:
+            if self._closed.is_set():
+                raise RuntimeError("BatchingFrontend is closed")
+            fut: Future = Future()
+            self._q.put((image, landmarks, fut))
+        return fut
+
+    def close(self, flush: bool = True) -> None:
+        """Stop both threads.  `flush=True` serves everything already
+        queued first; otherwise queued futures are cancelled.  Idempotent."""
+        if not flush:
+            self._cancel_queued()
+        with self._submit_lock:
+            self._closed.set()
+        self._thread.join(timeout=60.0)
+        self._dispatcher.join(timeout=60.0)
+        self._cancel_queued()
+
+    def _cancel_queued(self) -> None:
+        try:
+            while True:
+                self._q.get_nowait()[2].cancel()
+        except queue.Empty:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --------------------------------------------------------- collector
+    def _loop(self) -> None:
+        svc = self._service
+        in_hand: list[Future] = []    # taken off the queue, not dispatched
+        try:
+            while True:
+                try:
+                    first = self._q.get(timeout=0.05)
+                except queue.Empty:
+                    if self._closed.is_set():
+                        return
+                    continue
+                batch = [first]
+                in_hand = [first[2]]
+                deadline = time.monotonic() + self._max_delay
+                while len(batch) < self._max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        batch.append(self._q.get(timeout=remaining))
+                    except queue.Empty:
+                        break
+                    in_hand.append(batch[-1][2])
+                imgs, lms, futs = zip(*batch)
+                live = [i for i, f in enumerate(futs)
+                        if f.set_running_or_notify_cancel()]
+                # one request's bad input fails only its own future
+                views, ok = [], []
+                for i in live:
+                    try:
+                        views.append(svc.preprocess(imgs[i], lms[i]))
+                        ok.append(i)
+                    except Exception as e:
+                        futs[i].set_exception(e)
+                bs = svc.batch_size
+                for s in range(0, len(ok), bs):
+                    sub_futs = [futs[i] for i in ok[s:s + bs]]
+                    vchunk = views[s:s + bs]
+                    try:
+                        staged = svc.stage(vchunk)
+                    except Exception as e:
+                        for f in sub_futs:
+                            f.set_exception(e)
+                        continue
+                    self._dispatch_q.put((staged, vchunk, sub_futs))
+                    in_hand = [f for f in in_hand if f not in sub_futs]
+                in_hand = []
+        except BaseException as e:
+            self._fail_all(e, in_hand)
+            raise
+        finally:
+            self._dispatch_q.put(None)       # the dispatcher's shutdown
+
+    def _fail_all(self, err: BaseException, in_hand: list) -> None:
+        """The collector failed: close, and fail the futures it held and
+        every queued one, so no waiter hangs."""
+        with self._submit_lock:
+            self._closed.set()
+        failed = list(in_hand)
+        try:
+            while True:
+                failed.append(self._q.get_nowait()[2])
+        except queue.Empty:
+            pass
+        for f in failed:
+            if not f.done():
+                f.set_exception(err)
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            item = self._dispatch_q.get()
+            if item is None:
+                return
+            staged, vchunk, futs = item
+            try:
+                results = self._service.forward_staged(staged, vchunk)
+            except Exception as e:           # surface on every waiter
+                for f in futs:
+                    f.set_exception(e)
+                continue
+            self.batches_dispatched += 1
+            self.requests_served += len(futs)
+            for f, r in zip(futs, results):
+                if not f.done():
+                    f.set_result(r)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

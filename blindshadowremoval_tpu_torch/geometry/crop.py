@@ -1,6 +1,6 @@
 """Host-side face crop/align and its training augmentation (port of
-`blindshadowremoval_tpu/geometry/crop.py`: `rotate_center`,
-`rotate_image_and_landmarks`, `face_crop_and_resize`).
+`blindshadowremoval_tpu/geometry/crop.py`: `pts_load`, `rotate_center`,
+`rotate_image_and_landmarks`, `face_crop_and_resize`, `offline_crop`).
 
 Box convention (utils.py:387-400 in the reference): a square window of
 side 2L centred on the landmark extent, shifted up by 0.2L, where L = 1.4 x
@@ -16,7 +16,19 @@ from __future__ import annotations
 import numpy as np
 
 from blindshadowremoval_tpu_torch.geometry.landmarks import mirror_landmarks
+from blindshadowremoval_tpu_torch.utils.imageio import resize_linear
 from blindshadowremoval_tpu_torch.utils.native import crop_resize
+
+
+def pts_load(path: str) -> np.ndarray:
+    """A `.pts` landmark file (utils.py:340-354): the points listed between
+    the '{' and '}' lines, one "x y" pair a line, as [N, 2] float32."""
+    with open(path) as fh:
+        rows = [r.strip() for r in fh]
+    head = rows.index("{") + 1
+    tail = rows.index("}")
+    pts = [tuple(float(v) for v in line.split()) for line in rows[head:tail]]
+    return np.asarray(pts, dtype=np.float32)
 
 
 def _rotation_inverse(deg: float, cx: float, cy: float) -> np.ndarray:
@@ -189,3 +201,44 @@ def face_crop_and_resize(img: np.ndarray, lm: np.ndarray, fsize: int,
     return (img.astype(np.float32), (lm / side).astype(np.float32),
             (lm_mirror / side).astype(np.float32),
             np.asarray(box, np.float32))
+
+
+def offline_crop(img: np.ndarray, lm: np.ndarray, out_size: int = 256,
+                 min_face: int = 250):
+    """The offline dataset-prep crop (dataprocess.py:39-78): a square of
+    1.45x the landmark extent, its centre shifted up by 1.2x, zero-padded
+    where it leaves the image, resized to `out_size` (cv2's f32 bilinear).
+    A face whose square is at most `min_face` px is rejected (None).
+    Returns (crop [out_size, out_size, C] f32 on the input's scale,
+    landmarks rescaled into it, f32)."""
+    img = np.asarray(img)
+    lm = np.array(lm, dtype=np.float64, copy=True)
+    rows, cols = img.shape[:2]
+
+    cx = (lm[:, 0].min() + lm[:, 0].max()) / 2
+    cy = (lm[:, 1].min() + lm[:, 1].max()) / 2
+    length = max((lm[:, 0].max() - lm[:, 0].min()) / 2,
+                 (lm[:, 1].max() - lm[:, 1].min()) / 2) * 1.45
+    box = [int(cx) - int(length), int(cy) - int(length * 1.2),
+           int(cx) + int(length),
+           int(cy) + int(length) + int(length) - int(length * 1.2)]
+
+    lm[:, 0] -= box[0]
+    lm[:, 1] -= box[1]
+
+    pad_x = max(-box[0], box[2] - cols) if (box[0] < 0 or box[2] > cols) else 0
+    pad_y = max(-box[1], box[3] - rows) if (box[1] < 0 or box[3] > rows) else 0
+    if pad_x > 0 or pad_y > 0:
+        big = np.zeros((rows + 2 * pad_y + 2, cols + 2 * pad_x + 2,
+                        img.shape[2]), dtype=img.dtype)
+        big[pad_y:pad_y + rows, pad_x:pad_x + cols, :] = img
+        img = big
+        box = [box[0] + pad_x, box[1] + pad_y, box[2] + pad_x, box[3] + pad_y]
+
+    crop = img[box[1]:box[3], box[0]:box[2], :]
+    side = crop.shape[0]
+    if side <= min_face or crop.shape[0] != crop.shape[1]:
+        return None
+    out = resize_linear(crop.astype(np.float32), (out_size, out_size))
+    lm = lm * (out_size / side)
+    return out, lm.astype(np.float32)

@@ -31,6 +31,7 @@ from blindshadowremoval_tpu_torch.geometry.landmarks import (
     UV_TABLE,
     forehead_points,
 )
+from blindshadowremoval_tpu_torch.ops.filters import box_blur
 
 # Fixed triangle-count pad so topologies stack into one batch tensor
 # (68+16 anchor points yield ~160 triangles).
@@ -179,6 +180,20 @@ def generate_face_region(lm, size: int) -> np.ndarray:
     mask = _rasterize_host(tri, np.ones((pts.shape[0], 1), np.float32), size)
     mask = torch.from_numpy((mask > 0).astype(np.float32))[None]
     return _gauss5(mask)[0].numpy()
+
+
+def generate_face_region2(lm, size: int) -> np.ndarray:
+    """The box-blurred face region (utils.py:278-294): the landmarks' hull
+    with the jaw reflected upward at fold 0.6, rasterized, blurred by a
+    45x45 box (cv2.blur, reflect-101 borders) and max-normalized.  Returns
+    (size, size, 1) float32."""
+    lm = np.asarray(lm, np.float32)
+    pts = np.concatenate([lm, forehead_points(lm, 0.6)], axis=0)
+    tri = build_triangulation(pts)
+    mask = _rasterize_host(tri, np.ones((pts.shape[0], 1), np.float32), size)
+    mask = torch.from_numpy((mask > 0).astype(np.float32))[None]
+    mask = box_blur(mask, 45)[0].numpy()
+    return mask / (mask.max() + 1e-6)
 
 
 @functools.lru_cache(maxsize=1)

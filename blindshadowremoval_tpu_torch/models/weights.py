@@ -10,6 +10,11 @@ Two sources, both plain numpy, so neither needs JAX or TensorFlow:
     `TrainState` (weights, statistics, both optax Adam states, the LR
     schedule's count) into a `TrainState.state_dict()`, so a JAX run
     continues in the port.
+  * `sfd_from_jax` / `fan_from_jax`: the JAX package's S3FD and FAN
+    variables, or the flat `'<collection>/<module path>/<leaf>'` npz that
+    `tools/convert_{sfd,fan}_weights.py` writes, into the port's detector
+    and aligner (face_alignment's module names); `synthetic_sfd_weights`
+    and `synthetic_fan_weights` make such flat dicts from a seed.
   * `load_tf_weights`: a `{tf_name: array}` dict in the reference's TF
     checkpoint naming, through the name mapping of a generator variant (a
     port of `blindshadowremoval_tpu/models/tf_checkpoint.py:
@@ -305,3 +310,156 @@ def load_tf_weights(weights: dict, mapping) -> dict[str, torch.Tensor]:
     for name in [k for k in sd if k.endswith(".running_var")]:
         sd[name[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+# ------------------------------------------------------------ S3FD and FAN
+def _flat(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested JAX variables -> the flat '<collection>/<path>/<leaf>' layout
+    (a flat dict passes through)."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flat(value, name + "/"))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def sfd_from_jax(variables: Any) -> dict[str, torch.Tensor]:
+    """The JAX package's S3FD variables (`{params}`, numpy leaves) or their
+    flat npz layout -> the port's S3FD state_dict: each `params/<name>/
+    kernel` (HWIO) -> `<name>.weight` (OIHW), `bias` -> `<name>.bias`, an
+    L2Norm's `weight` -> `<name>.weight`."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, value in _flat(variables).items():
+        _, *path, leaf = key.split("/")
+        name = ".".join(path)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = _t(value.transpose(3, 2, 0, 1))
+        elif leaf in ("bias", "weight"):
+            sd[f"{name}.{leaf}"] = _t(value)
+        else:
+            raise ValueError(f"unrecognized S3FD entry: {key}")
+    return sd
+
+
+# the projection shortcut: Flax submodules -> torch's anonymous Sequential
+_FAN_SHORTCUT = {"down_bn": "downsample.0", "down_conv": "downsample.2"}
+_FAN_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
+               ("params", "bias"): "bias",
+               ("batch_stats", "mean"): "running_mean",
+               ("batch_stats", "var"): "running_var"}
+
+
+def fan_from_jax(variables: Any) -> dict[str, torch.Tensor]:
+    """The JAX package's FAN variables (`{params, batch_stats}`, numpy
+    leaves) or their flat npz layout -> the port's FAN state_dict (the
+    inverse of tools/convert_fan_weights.py's mapping): kernels HWIO ->
+    OIHW, BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
+    running_var, `down_bn`/`down_conv` -> `downsample.0`/`downsample.2`."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, value in _flat(variables).items():
+        coll, *path, leaf = key.split("/")
+        name = ".".join(_FAN_SHORTCUT.get(p, p) for p in path)
+        if (coll, leaf) not in _FAN_LEAVES:
+            raise ValueError(f"unrecognized FAN entry: {key}")
+        if leaf == "kernel":
+            value = value.transpose(3, 2, 0, 1)
+        sd[f"{name}.{_FAN_LEAVES[coll, leaf]}"] = _t(value)
+        if leaf == "var":
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def _draw(name: str, seed: int) -> np.random.Generator:
+    return np.random.default_rng((zlib.crc32(name.encode()) << 8) ^ seed)
+
+
+def _he_kernel(name: str, shape: tuple, seed: int,
+               gain: float = 1.0) -> np.ndarray:
+    """A He-normal HWIO kernel of `shape`, scaled by `gain`."""
+    fan_in = shape[0] * shape[1] * shape[2]
+    return (gain * _draw(name, seed).normal(0.0, np.sqrt(2.0 / fan_in), shape)
+            ).astype(np.float32)
+
+
+# the synthetic detector's head gains, so its logits and box offsets stay
+# O(1): the L2Norm taps carry face_alignment's trained scales (10, 8, 5),
+# the others the trunk's own magnitude (He keeps the input's ~70 RMS)
+_SFD_L2_SCALES = {"conv3_3_norm": 10.0, "conv4_3_norm": 8.0,
+                  "conv5_3_norm": 5.0}
+_SFD_NORM_HEAD_GAIN = 0.1
+_SFD_RAW_HEAD_GAIN = 0.01
+# the face-logit bias of the stride-64 head (anchor side 256 at det_size
+# 640): a seeded network detects something, as trained weights do on a face
+SFD_FACE_BIAS = ("conv6_2_mbox_conf", 1.0)
+
+
+def synthetic_sfd_weights(seed: int = 0) -> dict[str, np.ndarray]:
+    """Deterministic S3FD weights in the flat npz layout (each tensor a pure
+    function of its name and `seed`): He-normal kernels (activations keep
+    the input's scale through the 15 trunk convolutions, in bf16 too), zero
+    biases, face_alignment's L2Norm scales, head kernels scaled to O(1)
+    outputs, and a +1 face bias on the stride-64 conf head."""
+    from blindshadowremoval_tpu_torch.models.sfd import S3FD
+
+    out: dict[str, np.ndarray] = {}
+    for key, t in S3FD().state_dict().items():
+        name, leaf = key.rsplit(".", 1)
+        if name in _SFD_L2_SCALES:
+            out[f"params/{name}/weight"] = np.full(
+                t.shape, _SFD_L2_SCALES[name], np.float32)
+        elif leaf == "weight":
+            shape = tuple(t.shape[2:]) + (t.shape[1], t.shape[0])
+            gain = 1.0
+            if "_mbox_" in name:
+                gain = (_SFD_NORM_HEAD_GAIN if "_norm" in name
+                        else _SFD_RAW_HEAD_GAIN)
+            out[f"params/{name}/kernel"] = _he_kernel(name, shape, seed, gain)
+        else:
+            bias = np.zeros(t.shape, np.float32)
+            if name == SFD_FACE_BIAS[0]:
+                bias[1] = SFD_FACE_BIAS[1]
+            out[f"params/{name}/bias"] = bias
+    return out
+
+
+def synthetic_fan_weights(seed: int = 0, num_modules: int = 4
+                          ) -> dict[str, np.ndarray]:
+    """Deterministic FAN weights in the flat npz layout (each tensor a pure
+    function of its name and `seed`): He-normal kernels (the links between
+    stacks, `bl*` and `al*`, at a third of that), zero biases, and
+    BatchNorms with scale 0.5 and running statistics near (0, 1), which
+    keep the residual sums of 4 stacked hourglasses finite in bf16."""
+    from blindshadowremoval_tpu_torch.models.fan import FAN
+
+    inverse = {v: k for k, v in _FAN_SHORTCUT.items()}
+    out: dict[str, np.ndarray] = {}
+    sd = FAN(num_modules).state_dict()
+    for key, t in sd.items():
+        name, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = name
+        for torch_name, flax_name in inverse.items():
+            path = path.replace(torch_name, flax_name)
+        path = path.replace(".", "/")
+        is_bn = f"{name}.running_var" in sd
+        if leaf == "weight" and not is_bn:
+            shape = tuple(t.shape[2:]) + (t.shape[1], t.shape[0])
+            gain = 1.0 / 3.0 if name[:2] in ("bl", "al") else 1.0
+            out[f"params/{path}/kernel"] = _he_kernel(name, shape, seed, gain)
+        elif leaf == "weight":
+            out[f"params/{path}/scale"] = np.full(t.shape, 0.5, np.float32)
+        elif leaf == "bias":
+            out[f"params/{path}/bias"] = (
+                _draw(key, seed).normal(0.0, 0.05, t.shape).astype(np.float32)
+                if is_bn else np.zeros(t.shape, np.float32))
+        elif leaf == "running_mean":
+            out[f"batch_stats/{path}/mean"] = _draw(key, seed).normal(
+                0.0, 0.05, t.shape).astype(np.float32)
+        else:
+            out[f"batch_stats/{path}/var"] = _draw(key, seed).uniform(
+                0.8, 1.2, t.shape).astype(np.float32)
+    return out

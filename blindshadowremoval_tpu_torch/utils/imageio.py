@@ -11,7 +11,9 @@ neither.  Here:
   * `write_png` writes uint8 gray, RGB or RGBA arrays as given;
   * `resize_linear` is `cv2.resize(img, (w, h), interpolation=INTER_LINEAR)`
     on float arrays: half-pixel centres, clamped edges, two taps an axis
-    in f64.
+    in f64;
+  * `resize_linear_u8` is the same call on uint8 arrays, which cv2 runs in
+    11-bit fixed point: reproduced bit for bit.
 """
 
 from __future__ import annotations
@@ -183,3 +185,44 @@ def resize_linear(img: np.ndarray, dsize: tuple[int, int]) -> np.ndarray:
     x = np.asarray(img).astype(np.float64)
     w, h = int(dsize[0]), int(dsize[1])
     return _lerp(_lerp(x, 0, h), 1, w).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _fixed_taps(out_size: int, in_size: int):
+    """cv2's uint8 INTER_LINEAR coefficients along one axis (resize.cpp,
+    INTER_RESIZE_COEF_BITS=11): the source position in f32 from the f64
+    scale 1 / (out / in), its floor and f32 fraction, each weight
+    rounded to 1/2048.  An edge position keeps its fraction (cv2 clamps
+    the rows and columns read, not the weights)."""
+    scale = 1.0 / (out_size / in_size)
+    f = ((np.arange(out_size) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    return (np.clip(s, 0, in_size - 1), np.clip(s + 1, 0, in_size - 1),
+            w0, w1)
+
+
+def resize_linear_u8(img: np.ndarray, dsize: tuple[int, int]) -> np.ndarray:
+    """`cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)` of a uint8
+    [H, W] or [H, W, C] array, bit for bit: columns as integer sums of
+    two taps at 1/2048 weights, then rows as cv2's VResizeLinear for
+    uint8 does them, ((w0 * (r0 >> 4)) >> 16) + ((w1 * (r1 >> 4)) >> 16)
+    rounded by (+2) >> 2.  (An exact 2x reduction, which cv2 runs as
+    INTER_AREA, gives the same bytes.)"""
+    x = np.asarray(img)
+    if x.dtype != np.uint8:
+        raise TypeError(f"resize_linear_u8 takes uint8, got {x.dtype}")
+    # int32 holds every intermediate: 255 * 2048 a column sum, 2048 * (that
+    # >> 4) a row product
+    x = x.astype(np.int32)
+    w, h = int(dsize[0]), int(dsize[1])
+    y0, y1, b0, b1 = _fixed_taps(h, x.shape[0])
+    x0, x1, a0, a1 = _fixed_taps(w, x.shape[1])
+    cols = (-1,) + (1,) * (x.ndim - 2)
+    rows = x[:, x0] * a0.reshape(cols) + x[:, x1] * a1.reshape(cols)
+    wv = (-1, 1) + (1,) * (x.ndim - 2)
+    out = (((b0.reshape(wv) * (rows[y0] >> 4)) >> 16)
+           + ((b1.reshape(wv) * (rows[y1] >> 4)) >> 16))
+    return ((out + 2) >> 2).clip(0, 255).astype(np.uint8)

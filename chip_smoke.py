@@ -21,8 +21,12 @@ services, both train steps) with K1 held and timed at their batches and
 K1 and K2 held on an RGB step's own operands, trains end to end through
 `fit` on a synthetic training tree (both train wires, the val pass, the
 UCB probe, the checkpoint restored bitwise, a resume, the trained
-generator served; phase 13, run before phase 12's line), and prints one
-JSON line with every kernel and, last,
+generator served; phase 13), takes raw photos to deshadowed faces
+(phase 14: `DeshadowPipeline.run_dir` with the S3FD detector and the 2D-FAN
+aligner on seeded weights, overlapped and serial, against the CPU's f32
+pipeline; the detector and aligner in f32 against the CPU; the
+`BatchingFrontend` under client threads), and, after phases 13 and 14,
+prints one JSON line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -71,8 +75,12 @@ from blindshadowremoval_tpu_torch.eval.fused import (
     prep_part_inputs,
     resize_into_box,
 )
+from blindshadowremoval_tpu_torch.eval.e2e import DeshadowPipeline
 from blindshadowremoval_tpu_torch.eval.postprocess import PostprocessParams
-from blindshadowremoval_tpu_torch.eval.serving import ShadowRemovalService
+from blindshadowremoval_tpu_torch.eval.serving import (
+    BatchingFrontend,
+    ShadowRemovalService,
+)
 from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
     device_geometry_maps,
@@ -86,10 +94,22 @@ from blindshadowremoval_tpu_torch.models import (
     generator_rgb as generator_rgb_module,
 )
 from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
+from blindshadowremoval_tpu_torch.models.fan import (
+    LandmarkAligner,
+    box_to_center_scale,
+    crop_for_fan,
+    decode_heatmaps,
+)
+from blindshadowremoval_tpu_torch.models.sfd import FaceDetector, letterbox
+from blindshadowremoval_tpu_torch.models.sfd import nms as sfd_nms
 from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
+    fan_from_jax,
     generator_mapping,
     load_tf_weights,
+    sfd_from_jax,
+    synthetic_fan_weights,
+    synthetic_sfd_weights,
     synthetic_tf_weights,
 )
 from blindshadowremoval_tpu_torch.ops import _build
@@ -118,7 +138,12 @@ from blindshadowremoval_tpu_torch.train.losses import (
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
 from blindshadowremoval_tpu_torch.utils.checkpoint import CheckpointManager
-from blindshadowremoval_tpu_torch.utils.imageio import read_png, write_png
+from blindshadowremoval_tpu_torch.utils.imageio import (
+    imread,
+    read_png,
+    resize_linear_u8,
+    write_png,
+)
 
 ROOT = Path(__file__).resolve().parent
 TF_REF = ROOT / "tests" / "goldens" / "tf_ref"
@@ -720,13 +745,20 @@ def main() -> int:
     max_err = max(max_err, fit_k1_err)
     k2_err = max(k2_err, fit_k2_err)
 
+    phase("14 front end: raw photos to deshadowed faces")
+    with tempfile.TemporaryDirectory() as work:
+        front = frontend_path(dev, sd, smi, work)
+    max_err = max(max_err, front["k1_err"])
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
           f"{sum(eval_launches.values())}; variants "
           + ", ".join(f"{k} {v}" for k, v in var["launches"].items())
           + "; fit " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
-                                 for k, v in fit.items()))
+                                 for k, v in fit.items())
+          + "; front end " + ", ".join(f"{k} K1 {v}"
+                                       for k, v in front["launches"].items()))
     fit_k1 = sum(v[0] for v in fit.values())
     fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
@@ -736,7 +768,8 @@ def main() -> int:
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:70",
-        "launches": main_launches + fit_k1,
+        "launches": (main_launches + fit_k1
+                     + front["launches"]["run_dir overlapped"]),
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -748,7 +781,9 @@ def main() -> int:
                                 for k, v in eval_launches.items()},
                              **{k: v if isinstance(v, int) else v[0]
                                 for k, v in var["launches"].items()},
-                             **{f"fit {k}": v[0] for k, v in fit.items()}},
+                             **{f"fit {k}": v[0] for k, v in fit.items()},
+                             **{f"front end {k}": v
+                                for k, v in front["launches"].items()}},
         "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
@@ -2520,6 +2555,485 @@ def fit_path(dev, smi: str, work: str, bare_step_ms: float):
             k2_err = max(k2_err, check_k2_case(check_gen, shape, dtype))
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, k1_err, k2_err
+
+
+# the front end (phase 14): run_e2e's defaults (cli.py:210-226 in the JAX
+# package) on uncropped photos: the SFW-synth face scaled 2-3x into 720x1280
+# and 1024x768 frames, half of them with their landmarks beside them
+E2E_PHOTOS = 64
+E2E_CANVASES = ((720, 1280), (1024, 768))
+E2E_FACE_SCALE = (2.0, 3.0)
+E2E_STAGES = dict(det_size=640, det_batch=4, fan_batch=16, fan_modules=4,
+                  min_face=250)
+E2E_SERVE_BATCH = 16
+E2E_BATCH_FILES = 16
+E2E_CPU_PHOTOS = 8           # 4 with landmarks, 4 detected
+FRONTEND_REQUESTS = 70
+FRONTEND_CLIENTS = 4
+SFW_FACE = TF_REF / "sfw_synth" / "vid0" / "0"
+# card f32 against CPU f32 (TF32 off in both networks' convolutions; cuDNN
+# and oneDNN sum in different orders): S3FD scores and box offsets, FAN
+# heatmaps (which reach ~50 under the seeded weights)
+DET_SCORE_ATOL = 1e-4
+DET_LOC_ATOL = 1e-3
+DET_BOX_ATOL = 1e-2          # px, in the frame
+FAN_HM_ATOL = 2e-3
+
+
+def uncropped_photos(root: str, n: int = E2E_PHOTOS, seed: int = 0) -> list:
+    """n PNGs `<i>.png` under root: a seeded two-colour gradient frame of
+    E2E_CANVASES[i % 2] with the SFW-synth face scaled 2-3x pasted at a
+    seeded place (the face clears min_face); photos 0, 1, 4, 5, ... get
+    their landmarks as `<i>.npy`.  Returns the sorted paths."""
+    face = read_png(str(SFW_FACE) + ".png")
+    lm0 = np.load(str(SFW_FACE) + ".npy")
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        h, w = E2E_CANVASES[i % 2]
+        lo, hi = E2E_FACE_SCALE
+        scale = rng.uniform(lo, min(hi, min(h, w) / face.shape[0]))
+        side = round(face.shape[0] * scale)
+        x, y = (int(v) for v in rng.integers(0, (w - side + 1, h - side + 1)))
+        c0, c1 = rng.uniform(0.0, 255.0, (2, 3))
+        ramp = (np.linspace(0.0, 0.5, w)[None, :, None]
+                + np.linspace(0.0, 0.5, h)[:, None, None])
+        photo = (c0 + (c1 - c0) * ramp).astype(np.uint8)
+        photo[y:y + side, x:x + side] = resize_linear_u8(face, (side, side))
+        path = os.path.join(root, f"{i:02d}.png")
+        write_png(path, photo, level=1)
+        if (i // 2) % 2 == 0:
+            np.save(path[:-4] + ".npy",
+                    (lm0 * (side / face.shape[0]) + [x, y]).astype(np.float32))
+        paths.append(path)
+    return paths
+
+
+def read_photos(paths) -> tuple[list, list]:
+    """RGB frames and their landmarks (None without a .npy), as run_dir
+    reads them."""
+    imgs, lms = [], []
+    for f in paths:
+        imgs.append(np.ascontiguousarray(imread(f)[..., ::-1]))
+        npy = f[:-4] + ".npy"
+        lms.append(np.load(npy) if os.path.isfile(npy) else None)
+    return imgs, lms
+
+
+def written(r: dict, key: str) -> np.ndarray:
+    """A result plane as run_dir writes it, back on [0, 1]."""
+    img8 = np.clip(np.asarray(r[key], np.float32) * 255.0, 0,
+                   255).astype(np.uint8)
+    if img8.shape[-1] == 1:
+        img8 = np.repeat(img8, 3, axis=-1)
+    return img8.astype(np.float32) / 255.0
+
+
+def iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    area = lambda r: (r[2] - r[0]) * (r[3] - r[1])
+    return inter / (area(a) + area(b) - inter)
+
+
+def check_candidates(card: np.ndarray, cpu: np.ndarray, spans) -> tuple:
+    """One image's top-k candidates ([K, 6]: score, flat index, loc 4) on
+    the card against the CPU's, scale by scale: the indices both keep
+    within DET_SCORE_ATOL and DET_LOC_ATOL, and an index only one keeps
+    must lie within DET_SCORE_ATOL of that scale's k-th score (a near-tie
+    at the cut).  Returns (max |d score|, max |d loc|, indices kept by one
+    side only)."""
+    d_score = d_loc = 0.0
+    odd = start = 0
+    for k, _ in spans:
+        a, b = card[start:start + k], cpu[start:start + k]
+        start += k
+        ia = {int(i): r for i, r in zip(a[:, 1], a)}
+        ib = {int(i): r for i, r in zip(b[:, 1], b)}
+        for i in ia.keys() & ib.keys():
+            d_score = max(d_score, abs(float(ia[i][0] - ib[i][0])))
+            d_loc = max(d_loc, float(np.abs(ia[i][2:] - ib[i][2:]).max()))
+        kth = float(b[-1, 0])
+        for i in ia.keys() ^ ib.keys():
+            odd += 1
+            score = float((ia.get(i) if i in ia else ib[i])[0])
+            if abs(score - kth) > DET_SCORE_ATOL:
+                raise SystemExit(f"detector top-k: index {i} (score {score})"
+                                 f" kept by one side only, k-th {kth}")
+    if d_score > DET_SCORE_ATOL or d_loc > DET_LOC_ATOL:
+        raise SystemExit(f"detector candidates card vs CPU: score "
+                         f"{d_score:.3e}, loc {d_loc:.3e}")
+    return d_score, d_loc, odd
+
+
+def frontend_path(dev, sd: dict, smi: str, work: str) -> dict:
+    """Phase 14: raw photos to deshadowed faces with `run_e2e`'s defaults
+    (S3FD at 640, batch 4; FAN-4 at batch 16, both bf16, u8 FAN ingress;
+    GSC 256 px, n_res 6, bf16 folded, compact wires, device geometry,
+    serve batch 16; 16 files a chunk), the detector and aligner on seeded
+    synthetic weights, the generator on the TF-golden ones:
+    `run_dir` on E2E_PHOTOS photos, overlapped and serial (identical
+    bytes), held against the CPU's f32 pipeline given the card's
+    landmarks; the detector and aligner in f32 against the CPU's, bf16
+    recorded; `DeshadowPipeline(images, boxes=...)` with f32 stages
+    against the CPU; the `BatchingFrontend` under FRONTEND_CLIENTS client
+    threads against `remove_shadows`; the stages' device and host times;
+    K1 at every shape the path gave it.  Returns {"launches": {sub-path:
+    K1 launches}, "k1_err"}."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    seen, stop_recording = record_attention_shapes()
+    photos = os.path.join(work, "photos")
+    paths = uncropped_photos(photos)
+    chunks = [paths[s:s + E2E_BATCH_FILES]
+              for s in range(0, len(paths), E2E_BATCH_FILES)]
+    n_lm = sum(os.path.isfile(p[:-4] + ".npy") for p in paths)
+    print(f"{len(paths)} photos ({n_lm} with landmarks) of "
+          f"{' and '.join(f'{h}x{w}' for h, w in E2E_CANVASES)} written in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    sfd_w = sfd_from_jax(synthetic_sfd_weights(0))
+    fan_w = fan_from_jax(synthetic_fan_weights(0, E2E_STAGES["fan_modules"]))
+    cfg = get_config(compute_dtype="bfloat16", fold_bn=True,
+                     egress_dtype="bfloat16", compact_ingress=True,
+                     compact_output=True)
+    pipe = DeshadowPipeline(cfg, sd, fan_weights=fan_w, sfd_weights=sfd_w,
+                            device=dev, batch_size=E2E_SERVE_BATCH,
+                            **E2E_STAGES)
+    assert pipe.service.device_geometry
+    imgs0, lms0 = read_photos(chunks[0])
+    t0 = time.perf_counter()
+    pipe(imgs0, landmarks=lms0)                   # first calls at each shape
+    torch.cuda.synchronize()
+    print(f"pipeline built; a first chunk of {len(imgs0)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # --- run_dir, overlapped then serial: the slice's main path
+    launches, stats = {}, {}
+    for mode, overlap in (("overlapped", True), ("serial", False)):
+        nonlocal_attention.launches = 0
+        stats[mode] = pipe.run_dir(photos, os.path.join(work, mode),
+                                   batch_files=E2E_BATCH_FILES,
+                                   overlap=overlap)
+        launches[f"run_dir {mode}"] = nonlocal_attention.launches
+        st = stats[mode]
+        print(f"run_dir {mode}: {st['images']} photos, {st['written']} "
+              f"written, {st['images'] - st['faces']} without a usable face, "
+              f"{st['wall']:.2f} s wall, {st['images_per_s_wall']:.2f} "
+              f"images/s; stage seconds detect {st['detect']:.2f}, align "
+              f"{st['align']:.2f}, crop {st['crop']:.2f}, deshadow "
+              f"{st['deshadow']:.2f} (sum {st['total']:.2f}); K1 launches "
+              f"{launches[f'run_dir {mode}']} ({smi})", flush=True)
+    over, ser = (sorted(os.listdir(os.path.join(work, m)))
+                 for m in ("overlapped", "serial"))
+    same = over == ser and all(
+        open(os.path.join(work, "overlapped", f), "rb").read()
+        == open(os.path.join(work, "serial", f), "rb").read() for f in over)
+    print(f"overlapped and serial wrote {len(over)} and {len(ser)} files, "
+          f"{'byte for byte the same' if same else 'DIFFERENT'}; overlapped "
+          f"{stats['serial']['wall'] / stats['overlapped']['wall']:.2f}x "
+          f"faster", flush=True)
+    if not same or stats["overlapped"]["written"] == 0:
+        raise SystemExit("run_dir: the overlapped and serial runs differ")
+    served = -(-stats["overlapped"]["faces"] // E2E_SERVE_BATCH)
+    chunks_with_faces = len(chunks)   # every chunk holds landmarked photos
+    for mode in stats:
+        if launches[f"run_dir {mode}"] != (ATTN_CALLS_PER_FORWARD
+                                           * chunks_with_faces):
+            raise SystemExit(f"run_dir {mode}: "
+                             f"{launches[f'run_dir {mode}']} K1 launches")
+
+    # --- the card's boxes and landmarks, stage by stage on the chunks and
+    # batches run_dir used; then the CPU's f32 pipeline given them
+    card_lms, card_boxes, frames = [], [], []
+    for chunk in chunks:
+        imgs, lms = read_photos(chunk)
+        bxs, _ = pipe._stage_detect(imgs, lms, [None] * len(imgs))
+        lms, _ = pipe._stage_align(imgs, lms, bxs)
+        frames += imgs
+        card_lms += lms
+        card_boxes += bxs
+    # the CPU's f32 pipeline takes ~1.7 s a photo on 8 host cores: it
+    # holds the first E2E_CPU_PHOTOS (both kinds of photo), in
+    # batches of 4 (a tail pads to the batch); the card's own f32 generator
+    # holds all of them
+    cpu_pipe = DeshadowPipeline(get_config(compute_dtype="float32"), sd,
+                                fan_weights=fan_w, stage_dtype=torch.float32,
+                                device="cpu", batch_size=4,
+                                **{**E2E_STAGES, "fan_batch": 4})
+    f32_pipe = DeshadowPipeline(get_config(compute_dtype="float32"), sd,
+                                device=dev, batch_size=E2E_SERVE_BATCH,
+                                **E2E_STAGES)
+    for label, ref_pipe, n_ref in (
+            ("CPU f32", cpu_pipe, E2E_CPU_PHOTOS),
+            ("the card's f32 generator", f32_pipe, len(paths))):
+        t0 = time.perf_counter()
+        scores = {"out": [], "pred": [], "mask_pred": []}
+        for start in range(0, n_ref, E2E_BATCH_FILES):
+            sl = slice(start, min(start + E2E_BATCH_FILES, n_ref))
+            for path, r in zip(paths[sl], ref_pipe(frames[sl],
+                                                   landmarks=card_lms[sl])):
+                name = os.path.basename(path)[:-4]
+                have = os.path.isfile(os.path.join(work, "overlapped",
+                                                   f"{name}-out.png"))
+                if have != (r is not None):
+                    raise SystemExit(f"{name}: {label} and the card disagree "
+                                     "on whether it holds a usable face")
+                if r is None:
+                    continue
+                for key, suffix in (("out", "out"), ("pred", "pred"),
+                                    ("mask_pred", "mask")):
+                    card = read_png(os.path.join(
+                        work, "overlapped", f"{name}-{suffix}.png"))
+                    scores[key].append(psnr(card.astype(np.float32) / 255.0,
+                                            written(r, key)))
+        worst = {k: min(v) for k, v in scores.items()}
+        print(f"run_dir card bf16 vs {label} given the card's landmarks, "
+              f"{len(scores['out'])} photos as written (uint8): PSNR min / "
+              f"median " + ", ".join(f"{k} {worst[k]:.2f} / "
+                                     f"{np.median(v):.2f}"
+                                     for k, v in scores.items())
+              + f" dB (bar 40 dB); {time.perf_counter() - t0:.1f} s"
+              + (f" on {torch.get_num_threads()} threads"
+                 if ref_pipe is cpu_pipe else ""), flush=True)
+        if not all(x >= 40.0 for x in worst.values()):
+            raise SystemExit(f"run_dir on the card disagrees with {label}")
+    del f32_pipe
+
+    # --- the detector: f32 card vs f32 CPU, bf16 recorded
+    detected = [i for i, p in enumerate(paths)
+                if not os.path.isfile(p[:-4] + ".npy")]
+    det32 = FaceDetector(sfd_w, det_size=E2E_STAGES["det_size"],
+                         batch_size=E2E_STAGES["det_batch"],
+                         dtype=torch.float32, device=dev)
+    det_cpu = FaceDetector(sfd_w, det_size=E2E_STAGES["det_size"],
+                           batch_size=E2E_STAGES["det_batch"],
+                           dtype=torch.float32, device="cpu")
+    four = [frames[i] for i in detected[:E2E_STAGES["det_batch"]]]
+    canvases = np.stack([letterbox(im, E2E_STAGES["det_size"])[0]
+                         for im in four])
+    c32, spans = det32.candidates(torch.from_numpy(canvases).to(dev))
+    c32 = c32.cpu().numpy()
+    ccpu = det_cpu.candidates(torch.from_numpy(canvases))[0].numpy()
+    c16 = pipe.detector.candidates(torch.from_numpy(canvases).to(dev))[0]
+    c16 = c16.float().cpu().numpy()
+    d_score = d_loc = 0.0
+    odd = 0
+    for i in range(len(four)):
+        ds, dl, o = check_candidates(c32[i], ccpu[i], spans)
+        d_score, d_loc, odd = max(d_score, ds), max(d_loc, dl), odd + o
+    # greedy NMS keeps the best box first and suppresses by it, so a score
+    # near-tie (within the rounding of the two devices) may keep other
+    # boxes: the best box must agree unless the two best candidates tie
+    b32, bcpu = det32(four), det_cpu(four)
+    same_nms = total_nms = 0
+    d_best = 0.0
+    for a, b, cand in zip(b32, bcpu, ccpu):
+        total_nms += len(b)
+        same_nms += sum(bool(np.any(np.abs(a - row).max(-1) <= DET_BOX_ATOL))
+                        for row in b) if len(a) else 0
+        if len(a) == 0 or len(b) == 0:
+            if len(a) != len(b):
+                raise SystemExit("detector: a face on one side only")
+            continue
+        top2 = np.sort(cand[:, 0])[-2:]
+        d = float(np.abs(a[0, :4] - b[0, :4]).max())
+        if d > DET_BOX_ATOL and top2[1] - top2[0] > DET_SCORE_ATOL:
+            raise SystemExit(f"detector best box card vs CPU: {d:.3e} px")
+        d_best = max(d_best, d)
+    # bf16 (the path's) against f32 on the card, every detected photo
+    best32 = [d[0, :4] if len(d) else None
+              for d in det32([frames[i] for i in detected])]
+    best16 = [card_boxes[i] for i in detected]
+    same_box = sum(a is not None and b is not None and iou(a, b) > 0.99
+                   for a, b in zip(best32, best16))
+    d16 = float(np.abs(c16[..., 0] - c32[..., 0]).max())
+    print(f"S3FD f32 card vs CPU at ({len(four)}, "
+          f"{E2E_STAGES['det_size']}, {E2E_STAGES['det_size']}): top-k "
+          f"scores {d_score:.3e} (atol {DET_SCORE_ATOL:g}), box offsets "
+          f"{d_loc:.3e} (atol {DET_LOC_ATOL:g}), {odd} indices kept by one "
+          f"side (near-ties at the cut); the best box within {d_best:.3e} "
+          f"px (atol {DET_BOX_ATOL:g}); {same_nms} of {total_nms} boxes "
+          f"after NMS the same on both. bf16 "
+          f"on the card (record): top-k score |d| up to {d16:.3e} at the "
+          f"same ranks; the best box (IoU > 0.99) the same as f32's on "
+          f"{same_box} of {len(detected)} photos", flush=True)
+
+    # --- the aligner: f32 card vs f32 CPU, bf16 recorded
+    boxes = [b for b in best32 if b is not None][:E2E_STAGES["fan_batch"]]
+    faces = [frames[i] for i, b in zip(detected, best32) if b is not None]
+    faces = faces[:len(boxes)]
+    al32 = LandmarkAligner(fan_w, E2E_STAGES["fan_modules"],
+                           E2E_STAGES["fan_batch"], torch.float32,
+                           device=dev)
+    al_cpu = LandmarkAligner(fan_w, E2E_STAGES["fan_modules"],
+                             E2E_STAGES["fan_batch"], torch.float32,
+                             device="cpu")
+    cs = [box_to_center_scale(b) for b in boxes]
+    crops = al32.crops(faces, cs)
+    hm32 = al32.heatmaps(torch.from_numpy(crops).to(dev)).cpu()
+    hmcpu = al_cpu.heatmaps(torch.from_numpy(crops))
+    d_hm = float((hm32 - hmcpu).abs().max())
+    p32, pcpu = decode_heatmaps(hm32), decode_heatmaps(hmcpu)
+    top2 = hmcpu.flatten(2).topk(2, dim=2).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * FAN_HM_ATOL
+    moved = (p32 != pcpu).any(-1)
+    print(f"FAN-{E2E_STAGES['fan_modules']} f32 card vs CPU on {len(boxes)} "
+          f"crops: heatmaps {d_hm:.3e} of maps reaching "
+          f"{float(hmcpu.abs().max()):.1f} (atol {FAN_HM_ATOL:g}); "
+          f"landmarks {int(moved.sum())} of {moved.numel()} apart, "
+          f"{int((moved & near_tie).sum())} of them at near-ties", flush=True)
+    if d_hm > FAN_HM_ATOL or bool((moved & ~near_tie).any()):
+        raise SystemExit("the aligner on the card disagrees with the CPU")
+    l16 = pipe.aligner(faces, boxes)
+    l32 = al32(faces, boxes)
+    d_lm = np.stack([np.abs(a - b).max(-1) for a, b in zip(l16, l32)])
+    print(f"FAN bf16 + u8 crops (the path's) vs f32 on the card (record): "
+          f"{100 * float((d_lm == 0).mean()):.1f}% of landmarks equal, "
+          f"median {float(np.median(d_lm)):.2f} px, max {float(d_lm.max()):.1f} "
+          f"px", flush=True)
+
+    # --- FAN -> crop -> deshadow on the card from boxes, f32 stages, vs CPU
+    pipe32 = DeshadowPipeline(cfg, fan_weights=fan_w,
+                              stage_dtype=torch.float32,
+                              service=pipe.service, device=dev, **E2E_STAGES)
+    k = min(4, len(boxes))
+    nonlocal_attention.launches = 0
+    got = pipe32(faces[:k], boxes=[tuple(b) for b in boxes[:k]])
+    launches["pipeline from boxes"] = nonlocal_attention.launches
+    want = cpu_pipe(faces[:k], boxes=[tuple(b) for b in boxes[:k]])
+    box_scores = []
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise SystemExit("pipeline from boxes: card and CPU disagree on "
+                             "a usable face")
+        if g is not None:
+            box_scores.append(min(psnr(written(g, key), written(w, key))
+                                  for key in ("out", "pred", "mask_pred")))
+    print(f"DeshadowPipeline(images, boxes=...) f32 stages, bf16 generator, "
+          f"card vs CPU f32 on {k} photos: {len(box_scores)} faces, worst "
+          f"PSNR of out/pred/mask " + ", ".join(f"{x:.2f}" for x in box_scores)
+          + f" dB (bar 40 dB); K1 launches {launches['pipeline from boxes']}",
+          flush=True)
+    if not box_scores or min(box_scores) < 40.0:
+        raise SystemExit("pipeline from boxes disagrees with the CPU")
+    del cpu_pipe, al_cpu, det_cpu
+
+    # --- the BatchingFrontend: FRONTEND_CLIENTS client threads
+    svc = ShadowRemovalService(
+        get_config(compute_dtype="bfloat16", fold_bn=True,
+                   egress_dtype="bfloat16"), sd,
+        batch_size=E2E_SERVE_BATCH, device=dev)
+    images, lms = synthetic_requests(FRONTEND_REQUESTS)
+    want = svc.remove_shadows(images, lms)
+    results = [None] * FRONTEND_REQUESTS
+    latency = [0.0] * FRONTEND_REQUESTS
+    errors = []
+    nonlocal_attention.launches = 0
+    t0 = time.perf_counter()
+    with BatchingFrontend(svc, max_delay_ms=5.0) as fe:
+        def client(k: int):
+            try:
+                sent = [(i, time.perf_counter(), fe.submit(images[i], lms[i]))
+                        for i in range(k, FRONTEND_REQUESTS,
+                                       FRONTEND_CLIENTS)]
+                for i, t_sent, fut in sent:
+                    results[i] = fut.result(timeout=300.0)
+                    latency[i] = time.perf_counter() - t_sent
+            except BaseException as e:
+                errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(FRONTEND_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+    front_s = time.perf_counter() - t0
+    launches["BatchingFrontend"] = nonlocal_attention.launches
+    if errors:
+        raise errors[0]
+    fe_scores = [min(psnr(r["pred"], w["pred"]),
+                     psnr(r["mask_pred"], w["mask_pred"]))
+                 for r, w in zip(results, want)]
+    print(f"BatchingFrontend: {fe.requests_served} requests from "
+          f"{FRONTEND_CLIENTS} client threads in {fe.batches_dispatched} "
+          f"batches (max {E2E_SERVE_BATCH}, 5 ms), {front_s:.2f} s wall, "
+          f"{FRONTEND_REQUESTS / front_s:.1f} requests/s; latency after "
+          f"result() p50 {1e3 * np.percentile(latency, 50):.0f} ms, p95 "
+          f"{1e3 * np.percentile(latency, 95):.0f} ms; vs remove_shadows "
+          f"worst PSNR {min(fe_scores):.2f} dB (bar 40); K1 launches "
+          f"{launches['BatchingFrontend']} ({smi})", flush=True)
+    if fe.requests_served != FRONTEND_REQUESTS or min(fe_scores) < 40.0:
+        raise SystemExit("the BatchingFrontend disagrees with remove_shadows")
+    if launches["BatchingFrontend"] != (ATTN_CALLS_PER_FORWARD
+                                        * fe.batches_dispatched):
+        raise SystemExit(f"frontend: {launches['BatchingFrontend']} K1 "
+                         "launches")
+
+    # --- where the time goes: the networks on the device, their host work
+    batch = torch.from_numpy(canvases).to(dev)
+    crops_u8 = torch.from_numpy(np.rint(crops * 255.0).astype(np.uint8)).to(
+        dev)
+    with torch.inference_mode():
+        det_ms = {dt: cuda_ms(lambda d=d: d.candidates(batch), iters=10,
+                              warmup=2)
+                  for dt, d in (("bf16", pipe.detector), ("f32", det32))}
+        fan_ms = {dt: cuda_ms(lambda a=a, x=x: a.heatmaps(x), iters=10,
+                              warmup=2)
+                  for dt, a, x in (("bf16", pipe.aligner, crops_u8),
+                                   ("f32", al32,
+                                    torch.from_numpy(crops).to(dev)))}
+    det_frames = [frames[i] for i in detected]
+    t0 = time.perf_counter()
+    pairs = [letterbox(im, E2E_STAGES["det_size"]) for im in det_frames]
+    lb_ms = 1e3 * (time.perf_counter() - t0) / len(det_frames)
+    cands, spans = pipe.detector.candidates(
+        torch.from_numpy(np.stack([c for c, _ in pairs[:4]])).to(dev))
+    cands = cands.float().cpu().numpy()
+    t0 = time.perf_counter()
+    n_cand = 0
+    for c in cands:
+        dets = pipe.detector._decode_topk(c, spans)
+        n_cand += len(dets)
+        dets = dets[sfd_nms(dets)]
+    dec_ms = 1e3 * (time.perf_counter() - t0) / len(cands)
+    t0 = time.perf_counter()
+    for im, (c, s_) in zip(faces, cs):
+        crop_for_fan(im, c, s_)
+    crop_ms = 1e3 * (time.perf_counter() - t0) / len(faces)
+    print(f"device, CUDA events: S3FD at ({E2E_STAGES['det_batch']}, "
+          f"{E2E_STAGES['det_size']}, {E2E_STAGES['det_size']}) bf16 "
+          f"{det_ms['bf16']:.2f} ms, f32 {det_ms['f32']:.2f} ms; "
+          f"FAN-{E2E_STAGES['fan_modules']} at {E2E_STAGES['fan_batch']} "
+          f"crops bf16 u8 {fan_ms['bf16']:.2f} ms, f32 {fan_ms['f32']:.2f} "
+          f"ms. host: letterbox {lb_ms:.1f} ms a photo, top-k decode + NMS "
+          f"{dec_ms:.1f} ms a photo ({n_cand / len(cands):.0f} candidates), "
+          f"crop_for_fan {crop_ms:.1f} ms a face ({smi})", flush=True)
+
+    # --- K1 at every shape the path gave it
+    stop_recording()
+    check_gen = torch.Generator(device=dev).manual_seed(14)
+    k1_err = 0.0
+    for name, shape, dtype in sorted(seen, key=str):
+        if name != "nonlocal_attention":
+            raise SystemExit(f"the front end launched {name}")
+        k1_err = max(k1_err, check_k1(check_gen, shape, dtype))
+    print(f"K1 at the front end's shapes: "
+          f"{sorted({s for _, s, _ in seen})}", flush=True)
+
+    del pipe, pipe32, svc, det32, al32
+    torch.cuda.empty_cache()
+    left = [t.name for t in set(threading.enumerate()) - threads_before
+            if t.is_alive()]
+    if left:
+        raise SystemExit(f"threads left running: {left}")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s, no thread left "
+          f"running", flush=True)
+    return {"launches": launches, "k1_err": k1_err}
 
 
 if __name__ == "__main__":

@@ -35,7 +35,7 @@ S = 64
 
 
 @pytest.mark.parametrize("name", ["UV_TABLE", "LM_REF", "LM_MIRROR_PERM",
-                                  "ANCHOR_POINTS"])
+                                  "ANCHOR_POINTS", "LM_SKELETON_EDGES"])
 def test_landmark_tables_equal(name):
     ours, ref = getattr(landmarks, name), getattr(jax_lm, name)
     assert ours.dtype == ref.dtype
