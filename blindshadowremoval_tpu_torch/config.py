@@ -2,10 +2,11 @@
 pipeline, the GAN train step, `fit`) and evaluation (UCB, SFW, SFW video,
 in-the-wild) of the three generator variants (gsc, tsm, rgb).
 
-Port of `blindshadowremoval_tpu/config.py`, cut to the fields those paths
-read.  The options whose code paths are not ported (the TPU experiments
-of ROADMAP F4) raise `NotImplementedError` naming the item, so a caller
-never silently gets another configuration than it asked for.
+Port of `blindshadowremoval_tpu/config.py`, with every field of it.  The
+options whose code paths are not ported (a mesh other than one device,
+ROADMAP F1; the space-to-depth convs, F4) raise `NotImplementedError`
+naming the item, so a caller never silently gets another configuration
+than it asked for.
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ class Config:
     `ShadowRemovalService`, has the service's default)."""
 
     img_size: int = 256                # IMG_SIZE (train_test_GSC.py:31)
+    map_size: int = 32                 # MAP_SIZE, the bottleneck's side: the
+                                       # generators derive it (img_size / 8);
+                                       # another value than that or the
+                                       # default is refused
     n_res: int = 6                     # ResBottleneck count in the generator
     variant: str = "gsc"               # 'gsc' | 'tsm' | 'rgb'
     compute_dtype: str = "bfloat16"    # activations / conv dtype
@@ -96,16 +101,48 @@ class Config:
                                        # derived pair is clamped to [0,1],
                                        # as the compact wire clamps the
                                        # host pair
-    # not ported: must stay at their defaults
-    int8_head: bool = False            # ROADMAP F4
+    # the int8 output head (ops/quant.py), gsc and tsm only
+    int8_head: bool = False            # the 7x7 head conv on int8 codes
+    int8_head_scale: object = 0.0      # its activation bound(s): 0.0 = auto,
+                                       # per channel from the checkpoint's
+                                       # BatchNorm (ops/calibration.py, at
+                                       # every restore); a tuple = per input
+                                       # channel; > 0 = one scalar; < 0 =
+                                       # the dynamic per-sample max
+    int8_head_split: bool = False      # gsc: int8 for the offset channel
+                                       # `con` only, the tanh gain exact
+    # devices: one, until the multi-device port (ROADMAP F1)
+    mesh_shape: tuple = (1, 1)         # (data, frame) mesh axes
+    mesh_axis_names: tuple = ("data", "frame")
+    param_dtype: str = "float32"       # the parameters' dtype; the only one
+                                       # either package makes them in
+    # not ported: must stay at its default
     s2d_convs: bool = False            # ROADMAP F4
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r}; choose "
                              f"from {VARIANTS}")
-        if self.int8_head:
-            raise NotImplementedError("int8_head is not ported (ROADMAP F4)")
+        if tuple(self.mesh_shape) != (1, 1):
+            raise NotImplementedError(
+                f"mesh_shape={tuple(self.mesh_shape)}: runs over more than "
+                "one device are not ported (ROADMAP F1)")
+        if self.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={self.param_dtype!r}: parameters are float32 "
+                "(the JAX package reads this field nowhere either)")
+        # the default stands at any img_size, as the JAX package never
+        # reads it; another value must be the bottleneck the generators make
+        if self.map_size not in (32, self.img_size // 8):
+            raise ValueError(f"map_size={self.map_size}: the bottleneck of "
+                             f"img_size {self.img_size} is "
+                             f"{self.img_size // 8}")
+        if self.variant == "rgb" and (self.int8_head or self.int8_head_split):
+            raise ValueError("the rgb generator has no int8 head (nor has "
+                             "the JAX package's)")
+        if self.variant == "tsm" and self.int8_head_split:
+            raise ValueError("int8_head_split is a gsc option (the JAX "
+                             "package's TSM generator has no split head)")
         if self.s2d_convs:
             raise NotImplementedError("s2d_convs is not ported (ROADMAP F4)")
         for name in ("compute_dtype", "egress_dtype", "vgg_dtype"):

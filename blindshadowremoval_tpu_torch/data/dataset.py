@@ -193,14 +193,22 @@ def _worker_sample() -> dict:
     return ds.parse_train(d, rng=rng)
 
 
+# the manager threads of closed parse pools, still joining their workers
+_closing_pools: list = []
+
+
 def stop_parse_servers() -> None:
     """Stop the forkserver that forks the parse workers, then the resource
     tracker they share, and wait for both to end (a later train iterator
     starts both again).  Left alone, each ends only once it sees its
     parent gone, and then unloads torch: a program would leave them
     running past its own end.  Runs at exit, after the executors' own exit
-    hook has joined the workers."""
+    hook has joined the workers; a caller that runs it before (the CLI)
+    drops its iterators first.  Closed pools finish joining their workers
+    before the tracker stops, which must outlive their semaphores."""
     from multiprocessing import forkserver, resource_tracker
+    while _closing_pools:
+        _closing_pools.pop().join(timeout=60)
     for server in (forkserver._forkserver, resource_tracker._resource_tracker):
         server._stop()
 
@@ -511,7 +519,10 @@ class Dataset:
                 idx = (idx + 1) % len(pending)
                 yield result
         finally:
+            manager = pool._executor_manager_thread
             pool.shutdown(wait=False, cancel_futures=True)
+            if manager is not None:
+                _closing_pools.append(manager)
 
     def _test_iter(self):
         for name in self.name_list:

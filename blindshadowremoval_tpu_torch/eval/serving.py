@@ -15,7 +15,7 @@ Usage:
     with BatchingFrontend(svc, max_delay_ms=5.0) as fe:
         result = fe.submit(image, landmarks).result()
 
-Not ported yet: the `mesh` option (ROADMAP F1) and int8 calibration (F4).
+Not ported yet: the `mesh` option (ROADMAP F1).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from blindshadowremoval_tpu_torch.geometry.triangulation import (
     generate_uv_map,
 )
 from blindshadowremoval_tpu_torch.models import build_generator
+from blindshadowremoval_tpu_torch.ops.calibration import calibrate_config
 from blindshadowremoval_tpu_torch.ops.image import dequantize
 
 
@@ -55,7 +56,10 @@ class ShadowRemovalService:
     `compact_ingress` sends the cropped [0,1] image (and the UV map in
     host-maps mode) as uint16 fixed point, dequantized on the device;
     `compact_output` returns uint8 predictions and f16 shadow maps.
-    `state_dict` holds unfolded weights (see `models/build_generator`)."""
+    `state_dict` holds unfolded weights (see `models/build_generator`).
+    An int8 head at the auto bound (`int8_head_scale` 0.0) is calibrated
+    from them (ops/calibration.py) before they are folded; `config` is
+    the calibrated config after construction."""
 
     config: Config
     state_dict: Any = None
@@ -64,9 +68,18 @@ class ShadowRemovalService:
     device_geometry: bool = True
 
     def __post_init__(self):
-        cfg = self.config
         self.device = resolve_device(self.device)
-        self.gen = build_generator(cfg, self.state_dict, self.device)
+        # calibrated before build_generator folds: folding consumes the
+        # BatchNorm statistics the bounds come from
+        cfg, sd = self.config, self.state_dict
+        if sd is None and (cfg.int8_head or cfg.int8_head_split):
+            from blindshadowremoval_tpu_torch.train.trainer import (
+                init_generator_vars,
+            )
+
+            sd = init_generator_vars(cfg)[1]   # build_generator's draw
+        cfg = self.config = calibrate_config(cfg, sd)
+        self.gen = build_generator(cfg, sd, self.device)
         # snapshot the wires: the call paths below read these, even if a
         # caller replaces the config afterwards
         self._compact = cfg.compact_output

@@ -27,10 +27,16 @@ def _glorot_init(model: torch.nn.Module, seed: int) -> None:
 
 def new_generator(config: Config) -> torch.nn.Module:
     """An untrained generator of `config.variant` (f32 parameters, on the
-    CPU), computing in the config's compute dtype."""
-    return GENERATORS[config.variant](
-        n_res=config.n_res, egress_dtype=config.torch_egress_dtype,
-        dtype=config.torch_compute_dtype, remat=config.remat)
+    CPU), computing in the config's compute dtype; gsc and tsm with the
+    config's int8 head (trainer.py:build_generator in the JAX package)."""
+    kw = dict(n_res=config.n_res, egress_dtype=config.torch_egress_dtype,
+              dtype=config.torch_compute_dtype, remat=config.remat)
+    if config.variant != "rgb":
+        kw.update(int8_head=config.int8_head,
+                  int8_head_scale=config.int8_head_scale)
+    if config.variant == "gsc":
+        kw.update(int8_head_split=config.int8_head_split)
+    return GENERATORS[config.variant](**kw)
 
 
 def build_generator(config: Config, state_dict: dict | None = None,
@@ -45,7 +51,8 @@ def build_generator(config: Config, state_dict: dict | None = None,
     Glorot-uniform from `seed`.  Parameters and BatchNorm statistics stay
     f32, as Flax keeps them; a folded model has no BatchNorm left, so its
     weights are stored in the compute dtype (folded in f32 first), which
-    spares every serving call the casts."""
+    spares every serving call the casts (but for an int8 head's, which
+    quantizes them from f32)."""
     dev = resolve_device(device)
     model = new_generator(config)
     if state_dict is None:
@@ -55,5 +62,9 @@ def build_generator(config: Config, state_dict: dict | None = None,
     model.eval()
     if config.fold_bn:
         fold_batch_norm(model)
-        return model.to(device=dev, dtype=config.torch_compute_dtype)
+        int8 = config.int8_head or config.int8_head_split
+        for name, child in model.named_children():
+            # an int8 head quantizes its f32 weights, folded or not
+            child.to(torch.float32 if int8 and name == "head"
+                     else config.torch_compute_dtype)
     return model.to(dev)

@@ -21,20 +21,23 @@ model casts its input to the compute dtype once.
 
 Each block owns its convolutions and BatchNorms, named so that
 `models/folding.py` pairs them structurally (`BN_PAIRS`).  A block built
-with `fold_bn=True` has `nn.Identity` in place of its BatchNorms.  Spectral
-norm, dropout, int8 and space-to-depth convs are not ported (ROADMAP F4).
+with `fold_bn=True` has `nn.Identity` in place of its BatchNorms.  A
+`ConvBlock` built with `int8=True` runs its conv on int8 codes
+(ops/quant.py) with the plain conv's parameters, so checkpoints
+interchange.  Spectral norm, dropout and space-to-depth convs are not
+ported (ROADMAP F4).
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import nonlocal_attention
+from blindshadowremoval_tpu_torch.ops.quant import int8_conv, pad_same, same_pad
 
 LEAKY_SLOPE = 0.3
 BN_EPS = 1e-3
@@ -109,37 +112,73 @@ def conv(x: torch.Tensor, mod: nn.Module, padding=0) -> torch.Tensor:
     return F.conv2d(x, w, b, mod.stride, padding)
 
 
-def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
-    """TF "SAME" (before, after) padding of one spatial axis."""
-    total = max((math.ceil(size / stride) - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def conv2d_same(x: torch.Tensor, mod: nn.Conv2d) -> torch.Tensor:
     """`mod` applied with TF "SAME" padding, in x's dtype."""
     k, s = mod.kernel_size[0], mod.stride[0]
-    top, bottom = _same_pad(x.shape[-2], k, s)
-    left, right = _same_pad(x.shape[-1], k, s)
+    top, bottom = same_pad(x.shape[-2], k, s)
+    left, right = same_pad(x.shape[-1], k, s)
     if top == bottom and left == right:
         return conv(x, mod, (top, left))
     return conv(F.pad(x, (left, right, top, bottom)), mod)
 
 
+def int8_conv2d_same(x: torch.Tensor, mod: nn.Conv2d,
+                     static_scale: float | tuple = 0.0,
+                     channels: tuple | None = None) -> torch.Tensor:
+    """`mod` applied "SAME" on int8 codes (ops/quant.py:int8_conv), in x's
+    dtype (JAX `_Int8Conv`).  `channels`: only these output channels run
+    int8, the rest in x's dtype (the split head)."""
+    s = mod.stride[0]
+    if channels is None:
+        return int8_conv(x, mod.weight, mod.bias, s,
+                         static_scale).to(x.dtype)
+    ch8 = list(channels)
+    rest = [c for c in range(mod.out_channels) if c not in ch8]
+    y8 = int8_conv(x, mod.weight[ch8], mod.bias[ch8], s,
+                   static_scale).to(x.dtype)
+    # the exact channels: the conv, then the bias, each rounded to x's
+    # dtype, as the JAX package adds them
+    yr = F.conv2d(pad_same(x, mod.kernel_size[0], s),
+                  mod.weight[rest].to(x.dtype), stride=s) \
+        + mod.bias[rest].to(x.dtype)[None, :, None, None]
+    cols = [None] * mod.out_channels
+    for j, c in enumerate(ch8):
+        cols[c] = y8[:, j:j + 1]
+    for j, c in enumerate(rest):
+        cols[c] = yr[:, j:j + 1]
+    return torch.cat(cols, dim=1)
+
+
 class ConvBlock(nn.Module):
-    """Conv + optional BatchNorm + optional LeakyReLU (model.py:115-147)."""
+    """Conv + optional BatchNorm + optional LeakyReLU (model.py:115-147).
+
+    `int8`: the conv runs on int8 codes against the activation bound(s)
+    `int8_scale` (a scalar, a per-input-channel tuple, or <= 0 for the
+    dynamic per-sample max), for the output channels `int8_channels` only
+    when given (ops/quant.py; JAX `ConvBlock.quant_*`)."""
 
     BN_PAIRS = (("conv", "bn"),)
 
     def __init__(self, in_ch: int, features: int, ksize: int = 3,
                  stride: int = 1, norm: bool = True, act: bool = True,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, int8: bool = False,
+                 int8_scale: float | tuple = 0.0,
+                 int8_channels: tuple | None = None):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, ksize, stride)
         self.bn = _bn(features, fold_bn) if norm else nn.Identity()
         self.act = act
+        self.int8 = int8
+        self.int8_scale = int8_scale
+        self.int8_channels = int8_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(conv2d_same(x, self.conv))
+        if self.int8:
+            y = int8_conv2d_same(x, self.conv, self.int8_scale,
+                                 self.int8_channels)
+        else:
+            y = conv2d_same(x, self.conv)
+        x = self.bn(y)
         return F.leaky_relu(x, LEAKY_SLOPE) if self.act else x
 
 

@@ -59,7 +59,10 @@ class GSCGenerator(nn.Module):
 
     def __init__(self, n_res: int = 6, fold_bn: bool = False,
                  egress_dtype: torch.dtype = torch.float32,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 int8_head: bool = False,
+                 int8_head_scale: float | tuple = 0.0,
+                 int8_head_split: bool = False):
         super().__init__()
         self.egress_dtype = egress_dtype
         self.dtype = dtype
@@ -86,8 +89,15 @@ class GSCGenerator(nn.Module):
         self.up2 = ConvTBlock(N_CH[3] + N_CH[2], N_CH[2], **fb)
         self.up3 = ConvTBlock(N_CH[2] + N_CH[1], N_CH[1], **fb)
         # conv2 (tanh gain) and conv3 (offset) of the reference, fused into
-        # one 2-channel 7x7 head, as in the JAX package
-        self.head = ConvBlock(N_CH[1], 2, ksize=7, norm=False, act=False)
+        # one 2-channel 7x7 head, as in the JAX package.  int8_head runs it
+        # on int8 codes against the bound(s) int8_head_scale
+        # (ops/calibration.py derives them from the checkpoint); the split
+        # head puts only channel 1, the offset `con`, on int8, and keeps
+        # the tanh gain that feeds the dif > 0.1 mask exact
+        self.head = ConvBlock(
+            N_CH[1], 2, ksize=7, norm=False, act=False,
+            int8=int8_head or int8_head_split, int8_scale=int8_head_scale,
+            int8_channels=(1,) if int8_head_split else None)
         self.clr_up1 = ConvTBlock(rgb_out, N_CH[4], **fb)
         self.clr_up2 = ConvTBlock(N_CH[4], N_CH[3], **fb)
         self.clr_up3 = ConvTBlock(N_CH[3], N_CH[2], **fb)

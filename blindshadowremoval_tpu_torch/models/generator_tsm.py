@@ -75,9 +75,12 @@ class TSMGenerator(GSCGenerator):
     def __init__(self, n_res: int = 6, fold_bn: bool = False,
                  egress_dtype: torch.dtype = torch.float32,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 axis_name: str | None = None):
+                 axis_name: str | None = None, int8_head: bool = False,
+                 int8_head_scale: float | tuple = 0.0):
+        # the int8 head as GSC's, without the split (generator_tsm.py:84-85)
         super().__init__(n_res=n_res, fold_bn=fold_bn,
-                         egress_dtype=egress_dtype, dtype=dtype, remat=remat)
+                         egress_dtype=egress_dtype, dtype=dtype, remat=remat,
+                         int8_head=int8_head, int8_head_scale=int8_head_scale)
         self.info_share = ShareLayer(axis_name)
 
     def forward(self, inputs: torch.Tensor, uv: torch.Tensor,

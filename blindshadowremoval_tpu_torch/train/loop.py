@@ -160,7 +160,7 @@ class _UCBProbe:
 
         probe_cfg = dataclasses.replace(
             config, mode="ucb", eval_views=1, fold_bn=False,
-            egress_dtype="float32")
+            int8_head=False, egress_dtype="float32")
         if not probe_cfg.data_dirs_test or not probe_cfg.part_mask_root:
             raise ValueError(
                 "select_best needs config.data_dirs_test (UCB input glob) "
@@ -199,7 +199,8 @@ class _SFWProbe:
         from blindshadowremoval_tpu_torch.eval.evaluators import SFWEvaluator
 
         probe_cfg = dataclasses.replace(
-            config, mode="sfw", fold_bn=False, egress_dtype="float32")
+            config, mode="sfw", fold_bn=False, int8_head=False,
+            int8_head_split=False, egress_dtype="float32")
         if not probe_cfg.data_dirs_test:
             raise ValueError(
                 "select_best with probe_metric='auc' needs "

@@ -25,8 +25,12 @@ generator served; phase 13), takes raw photos to deshadowed faces
 (phase 14: `DeshadowPipeline.run_dir` with the S3FD detector and the 2D-FAN
 aligner on seeded weights, overlapped and serial, against the CPU's f32
 pipeline; the detector and aligner in f32 against the CPU; the
-`BatchingFrontend` under client threads), and, after phases 13 and 14,
-prints one JSON line with every kernel and, last,
+`BatchingFrontend` under client threads), runs every subcommand of
+`python -m blindshadowremoval_tpu_torch` (phase 15: train, infer with both
+engines and the int8 head, ucb, sfw, sfw-video, preprocess, landmarks and
+e2e, each against the same call through the library; the int8 head's
+int32 accumulators against their plain version), and, after phases 13 to
+15, prints one JSON line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends
 the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob as glob_module
 import inspect
 import io
 import json
@@ -54,6 +59,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from blindshadowremoval_tpu_torch import cli
+from blindshadowremoval_tpu_torch import config as config_module
 from blindshadowremoval_tpu_torch.config import get_config
 from blindshadowremoval_tpu_torch.data.dataset import Dataset
 from blindshadowremoval_tpu_torch.data.synthesis import (
@@ -81,6 +88,7 @@ from blindshadowremoval_tpu_torch.eval.serving import (
     BatchingFrontend,
     ShadowRemovalService,
 )
+from blindshadowremoval_tpu_torch.geometry.crop import offline_crop
 from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
     device_geometry_maps,
@@ -97,10 +105,19 @@ from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
 from blindshadowremoval_tpu_torch.models.fan import (
     LandmarkAligner,
     box_to_center_scale,
+    build_fan,
     crop_for_fan,
     decode_heatmaps,
+    landmarks_from_image,
+    load_fan_npz,
 )
-from blindshadowremoval_tpu_torch.models.sfd import FaceDetector, letterbox
+from blindshadowremoval_tpu_torch.models.sfd import (
+    FaceDetector,
+    build_s3fd,
+    detect_faces,
+    letterbox,
+    load_sfd_npz,
+)
 from blindshadowremoval_tpu_torch.models.sfd import nms as sfd_nms
 from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
@@ -112,7 +129,7 @@ from blindshadowremoval_tpu_torch.models.weights import (
     synthetic_sfd_weights,
     synthetic_tf_weights,
 )
-from blindshadowremoval_tpu_torch.ops import _build
+from blindshadowremoval_tpu_torch.ops import _build, quant
 from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     KERNEL_TOLERANCE,
@@ -124,6 +141,7 @@ from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     nonlocal_attention_bwd_reference,
     nonlocal_attention_reference,
 )
+from blindshadowremoval_tpu_torch.ops.calibration import calibrate_config
 from blindshadowremoval_tpu_torch.ops.filters import find_edge
 from blindshadowremoval_tpu_torch.ops.image import dequantize
 from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
@@ -137,6 +155,7 @@ from blindshadowremoval_tpu_torch.train.losses import (
     reconstruction_losses,
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
+from blindshadowremoval_tpu_torch.utils import profiling
 from blindshadowremoval_tpu_torch.utils.checkpoint import CheckpointManager
 from blindshadowremoval_tpu_torch.utils.imageio import (
     imread,
@@ -144,6 +163,7 @@ from blindshadowremoval_tpu_torch.utils.imageio import (
     resize_linear_u8,
     write_png,
 )
+from blindshadowremoval_tpu_torch.utils.logging import TrainLogger
 
 ROOT = Path(__file__).resolve().parent
 TF_REF = ROOT / "tests" / "goldens" / "tf_ref"
@@ -750,6 +770,12 @@ def main() -> int:
         front = frontend_path(dev, sd, smi, work)
     max_err = max(max_err, front["k1_err"])
 
+    phase("15 cli: python -m blindshadowremoval_tpu_torch, every subcommand")
+    with tempfile.TemporaryDirectory() as work:
+        clip = cli_path(dev, smi, work, faces)
+    max_err = max(max_err, clip["k1_err"])
+    k2_err = max(k2_err, clip["k2_err"])
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
@@ -758,7 +784,9 @@ def main() -> int:
           + "; fit " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
                                  for k, v in fit.items())
           + "; front end " + ", ".join(f"{k} K1 {v}"
-                                       for k, v in front["launches"].items()))
+                                       for k, v in front["launches"].items())
+          + "; cli " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
+                                 for k, v in clip["launches"].items()))
     fit_k1 = sum(v[0] for v in fit.values())
     fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
@@ -783,7 +811,9 @@ def main() -> int:
                                 for k, v in var["launches"].items()},
                              **{f"fit {k}": v[0] for k, v in fit.items()},
                              **{f"front end {k}": v
-                                for k, v in front["launches"].items()}},
+                                for k, v in front["launches"].items()},
+                             **{f"cli {k}": v[0]
+                                for k, v in clip["launches"].items()}},
         "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
@@ -800,7 +830,10 @@ def main() -> int:
         "launches_by_path": {"train": k2_train,
                              "tsm train": var["launches"]["tsm train"][1],
                              "rgb train": var["launches"]["rgb train"][1],
-                             **{f"fit {k}": v[1] for k, v in fit.items()}},
+                             **{f"fit {k}": v[1] for k, v in fit.items()},
+                             **{f"cli {k}": v[1]
+                                for k, v in clip["launches"].items()
+                                if v[1]}},
         "shapes": [dict(shape=list(shape), ms=rec[0], plain_ms=rec[1],
                         library_ms=rec[2], bound_ms=rec[3], bound_by=rec[4])
                    for shape, rec in k2_timed.items()]
@@ -3034,6 +3067,470 @@ def frontend_path(dev, sd: dict, smi: str, work: str) -> dict:
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s, no thread left "
           f"running", flush=True)
     return {"launches": launches, "k1_err": k1_err}
+
+
+# the command line (phase 15): every subcommand through cli.main at full
+# width (256 px, n_res 6, bf16: the CLI's own config) on small synthetic
+# data from the helpers of phases 10, 13 and 14
+CLI_TRAIN_BATCH = 4          # samples a step, 8 views
+CLI_TRAIN_STEPS = 3
+CLI_PHOTOS = 8               # phase 14's photos, 4 with landmarks
+CLI_CPU_IMAGES = 2           # the CPU's f32 CLI against the card's bf16
+INT8_CHECK_BATCH = 8         # the head's own input, for the accumulators
+INT8_BENCH_ITERS = 5
+
+
+def run_cli(argv: list, label: str, launches: dict, **patch) -> str:
+    """`cli.main(argv)` in this process with K1 and K2 counted and its
+    standard output captured; fails unless it exits 0.  Returns what it
+    printed."""
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches[label] = (nonlocal_attention.launches,
+                       nonlocal_attention_bwd.launches)
+    print(f"cli {label}: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+          f"K1, K2 launches {launches[label]}", flush=True)
+    if rc != 0:
+        raise SystemExit(f"cli {label} exited {rc}:\n{out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+@contextlib.contextmanager
+def cli_compute_dtype(dtype: str):
+    """Inside, the CLI's configs compute in `dtype` (the CLI itself has
+    no option for it: its runs are bf16)."""
+    real = config_module.get_config
+
+    def patched(preset="in_the_wild", **kw):
+        return real(preset, **{**kw, "compute_dtype": dtype})
+
+    config_module.get_config = patched
+    try:
+        yield
+    finally:
+        config_module.get_config = real
+
+
+def same_files(a: str, b: str, label: str) -> int:
+    """Fails unless directories a and b hold the same file names with the
+    same bytes; returns the count."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)) or not names:
+        raise SystemExit(f"cli {label}: the CLI wrote {names[:5]}, the "
+                         f"library {sorted(os.listdir(b))[:5]}")
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            if fa.read() != fb.read():
+                raise SystemExit(f"cli {label}: {n} differs from the "
+                                 f"library's")
+    return len(names)
+
+
+def line_of(out: str, prefix: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        raise SystemExit(f"expected one '{prefix}' line, got {lines}")
+    return lines[0]
+
+
+def strip_pred(path: str) -> np.ndarray:
+    """The prediction panel (the second of three) of a result strip."""
+    strip = read_png(path).astype(np.float32) / 255.0
+    s = strip.shape[0]
+    return strip[:, s:2 * s]
+
+
+def serve_strips(cfg, sd, data: str, out_dir: str, dev) -> None:
+    """What `infer --engine serving` writes, made by the library: every
+    <name>.png/.npy pair of the data glob through one ShadowRemovalService
+    on the compact wires, each result saved as a strip."""
+    names, images, lms = [], [], []
+    for folder in sorted(glob_module.glob(data)):
+        for lm_path in sorted(glob_module.glob(folder + "/*.npy")):
+            names.append(lm_path)
+            images.append(imread(lm_path[:-4] + ".png")[..., ::-1] / 255.0)
+            lms.append(np.load(lm_path))
+    svc = ShadowRemovalService(
+        dataclasses.replace(cfg, compact_output=True, compact_ingress=True),
+        sd, batch_size=min(64, len(names)), device=dev)
+    log = TrainLogger(out_dir)
+    for name, r in zip(names, svc.remove_shadows(images, lms)):
+        log.save_result_image(
+            [r["img"][None], r["pred"][None], r["mask_pred"][None] * 2.0],
+            name)
+
+
+def cli_path(dev, smi: str, work: str, bench_faces: float) -> dict:
+    """Phase 15: every subcommand of `python -m blindshadowremoval_tpu_torch`
+    on the card through `cli.main`, at 256 px, n_res 6, bf16: `--help` as
+    a subprocess; `train` on a synthetic identity tree, then `infer` (both
+    engines; serving folded, with the int8 head, and under
+    utils/profiling.trace), `ucb`, `sfw`, `sfw-video`, `preprocess`,
+    `landmarks` and `e2e` on its checkpoint and seeded S3FD/FAN npz
+    weights; each output held against the same call made through the
+    library (files byte for byte, printed figures equal), `infer` bf16
+    against the CPU's f32 CLI; the int8 head's int32 accumulators against
+    their plain version in each scale mode, its forward against bf16's,
+    its throughput at bench.py's configuration; K1 and K2 at every shape
+    the CLI gave them.  Returns {"launches": {subcommand: (K1, K2)},
+    "k1_err", "k2_err"}."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    launches = {}
+
+    out = subprocess.run(
+        [sys.executable, "-m", "blindshadowremoval_tpu_torch", "--help"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    subs = ("infer", "ucb", "sfw", "sfw-video", "train", "preprocess",
+            "e2e", "landmarks")
+    print(f"python -m blindshadowremoval_tpu_torch --help: exit "
+          f"{out.returncode}, lists {[s for s in subs if s in out.stdout]}",
+          flush=True)
+    if out.returncode != 0 or not all(s in out.stdout for s in subs):
+        raise SystemExit(f"--help failed: {out.stderr[-2000:]}")
+
+    seen, stop_recording = record_attention_shapes()
+    # --- train: CLI_TRAIN_STEPS steps on the CLI's default wires (u8
+    # compact ingress, device darkening) with the maps on the device
+    train_glob, _, masks = synthetic_train_tree(os.path.join(work, "data"))
+    ckpt = os.path.join(work, "ckpt")
+    run_cli(["train", "--data", train_glob, "--shadow-masks", masks,
+             "--device-geometry", "--batch-size", str(CLI_TRAIN_BATCH),
+             "--steps-per-epoch", str(CLI_TRAIN_STEPS), "--max-epoch", "1",
+             "--ckpt", ckpt], "train", launches)
+    k = ATTN_CALLS_PER_FORWARD
+    if launches["train"] != (k * CLI_TRAIN_STEPS, k * CLI_TRAIN_STEPS):
+        raise SystemExit(f"cli train: K1, K2 launches {launches['train']}")
+    sd, step = CheckpointManager(ckpt).restore_eval()
+    if step != 1 or not all(bool(torch.isfinite(v).all())
+                            for v in sd.values()):
+        raise SystemExit(f"cli train: checkpoint step {step}, or a tensor "
+                         f"is not finite")
+
+    def ckpt_copy(name: str) -> str:
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        os.symlink(os.path.join(ckpt, "1.pt"), os.path.join(d, "1.pt"))
+        return d
+
+    def lib_dir(name: str) -> str:
+        return os.path.join(work, "lib", name)
+
+    ucb = synthetic_ucb_tree(os.path.join(work, "ucb"))
+    data = os.path.join(ucb, "input", "*")
+
+    # --- infer, the evaluator engine (10 views a sample); the maps on the
+    # device here and in ucb (the host rasterizer takes ~1 s a view)
+    d = ckpt_copy("infer")
+    printed = run_cli(["infer", "--data", data, "--ckpt", d,
+                       "--device-geometry"], "infer", launches)
+    cfg = get_config(data_dirs_test=(data,), device_geometry=True,
+                     checkpoint_dir=lib_dir("infer"))
+    nonlocal_attention.launches = 0
+    InTheWildEvaluator(cfg, sd, device=dev).run(Dataset(cfg, "test", seed=0))
+    n = same_files(os.path.join(d, "test"),
+                   os.path.join(lib_dir("infer"), "test"), "infer")
+    print(f"cli infer: {line_of(printed, 'Restore from')}; {n} strips, "
+          f"byte for byte the library's", flush=True)
+    if launches["infer"][0] != k * UCB_IMAGES:
+        raise SystemExit(f"cli infer: {launches['infer'][0]} K1 launches")
+
+    # --- infer, the serving engine folded, then with the int8 head, then
+    # traced by utils/profiling.trace
+    serve_cfg = get_config(data_dirs_test=(data,), fold_bn=True)
+    for label, extra, cfg in (
+            ("infer serving", [], serve_cfg),
+            ("infer serving int8", ["--int8-head"],
+             dataclasses.replace(serve_cfg, int8_head=True))):
+        d = ckpt_copy(label.replace(" ", "_"))
+        printed = run_cli(["infer", "--data", data, "--ckpt", d, "--engine",
+                           "serving", "--fold-bn"] + extra, label, launches)
+        serve_strips(cfg, sd, data, lib_dir(label), dev)
+        n = same_files(os.path.join(d, "test"),
+                       os.path.join(lib_dir(label), "test"), label)
+        print(f"cli {label}: '{line_of(printed, 'wrote')}'; {n} strips, "
+              f"byte for byte the library's", flush=True)
+        if launches[label][0] != k:
+            raise SystemExit(f"cli {label}: {launches[label][0]} K1 "
+                             f"launches")
+    bf16_dir, int8_dir = (os.path.join(work, n, "test") for n in (
+        "infer_serving", "infer_serving_int8"))
+    scores = [psnr(strip_pred(os.path.join(int8_dir, f)),
+                   strip_pred(os.path.join(bf16_dir, f)))
+              for f in sorted(os.listdir(bf16_dir))]
+    print(f"cli infer serving, int8 head against the bf16 head: pred PSNR "
+          f"min {min(scores):.2f}, mean {np.mean(scores):.2f} dB over "
+          f"{len(scores)} strips (recorded)", flush=True)
+    d = ckpt_copy("traced")
+    logdir = os.path.join(work, "trace")
+    with profiling.trace(logdir) as prof:
+        run_cli(["infer", "--data", data, "--ckpt", d, "--engine", "serving",
+                 "--fold-bn"], "infer serving traced", launches)
+    traces = glob_module.glob(os.path.join(logdir, "*.pt.trace.json"))
+    k1_events = 0
+    for t in traces:
+        with open(t) as fh:
+            k1_events += sum(ev.get("name", "").find("attn_fwd") >= 0
+                             and ev.get("cat") == "kernel"
+                             for ev in json.load(fh).get("traceEvents", []))
+    k1_profiled = [(e.key, e.count) for e in prof.key_averages()
+                   if "attn_fwd" in e.key and e.device_time_total > 0]
+    print(f"utils/profiling.trace: {len(traces)} trace file(s), {k1_events} "
+          f"K1 kernel events in the trace ({k1_profiled})", flush=True)
+    if not traces or k1_events == 0:
+        raise SystemExit("the trace of infer --engine serving names no K1 "
+                         "kernel")
+
+    # --- infer bf16 on the card against the CPU's f32 CLI
+    two = synthetic_ucb_tree(os.path.join(work, "ucb2"),
+                             n_images=CLI_CPU_IMAGES, per_id=CLI_CPU_IMAGES)
+    data2 = os.path.join(two, "input", "*")
+    d_card, d_cpu = ckpt_copy("card2"), ckpt_copy("cpu2")
+    run_cli(["infer", "--data", data2, "--ckpt", d_card, "--engine",
+             "serving"], "infer serving 2 images", launches)
+    with cli_compute_dtype("float32"):
+        run_cli(["infer", "--data", data2, "--ckpt", d_cpu, "--engine",
+                 "serving", "--device", "cpu"], "infer serving 2 images, "
+                "the CPU in f32", launches)
+    scores = [psnr(strip_pred(os.path.join(d_card, "test", f)),
+                   strip_pred(os.path.join(d_cpu, "test", f)))
+              for f in sorted(os.listdir(os.path.join(d_cpu, "test")))]
+    print(f"cli infer: card bf16 against the CPU's f32 CLI, pred PSNR "
+          + ", ".join(f"{x:.2f}" for x in scores) + " dB (bar 40 dB)",
+          flush=True)
+    if len(scores) != CLI_CPU_IMAGES or not min(scores) >= 40.0:
+        raise SystemExit("cli infer on the card disagrees with the CPU's")
+
+    # --- ucb (fused, 8 images a call, compact ingress)
+    d = ckpt_copy("ucb_cli")
+    printed = run_cli(["ucb", "--data", data, "--part-masks", ucb, "--ckpt",
+                       d, "--device-geometry"], "ucb", launches)
+    cfg = get_config("ucb", data_dirs_test=(data,), compact_ingress=True,
+                     device_geometry=True, checkpoint_dir=lib_dir("ucb"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = UCBEvaluator(cfg, sd, device=dev).run(
+            Dataset(cfg, "test", seed=0), ucb, images_per_call=UCB_PER_CALL)
+    want = (f"UCB mean PSNR {np.mean([r['psnr'] for r in res]):.3f}  mean "
+            f"SSIM {np.mean([r['ssim'] for r in res]):.4f}")
+    got = line_of(printed, "UCB mean")
+    n = same_files(os.path.join(d, "test"),
+                   os.path.join(lib_dir("ucb"), "test"), "ucb")
+    print(f"cli ucb: '{got}', the library '{want}'; {n} strips byte for "
+          f"byte", flush=True)
+    if got != want:
+        raise SystemExit("cli ucb's figures differ from the library's")
+
+    # --- sfw and sfw-video on the TF-golden samples, the GSC variant
+    sfw_data = str(TF_REF / "sfw_gsc_synth" / "*")
+    d = ckpt_copy("sfw_cli")
+    printed = run_cli(["sfw", "--data", sfw_data, "--variant", "gsc",
+                       "--device-geometry", "--ckpt", d], "sfw", launches)
+    cfg = get_config("sfw", variant="gsc", device_geometry=True,
+                     data_dirs_test=(sfw_data,), checkpoint_dir=lib_dir("sfw"))
+    res = SFWEvaluator(cfg, sd, device=dev).run(
+        Dataset(cfg, "test", dset="sfw", seed=0))
+    want = f"SFW mean AUC {np.mean([r['auc'] for r in res]):.4f}"
+    got = line_of(printed, "SFW mean AUC")
+    print(f"cli sfw: '{got}', the library '{want}'", flush=True)
+    if got != want:
+        raise SystemExit("cli sfw's figure differs from the library's")
+    vid = str(TF_REF / "sfw_video_synth" / "*")
+    d = ckpt_copy("video_cli")
+    run_cli(["sfw-video", "--data", vid, "--variant", "gsc",
+             "--device-geometry", "--ckpt", d, "--export-bbox",
+             os.path.join(work, "bbox_cli")], "sfw-video", launches)
+    cfg = get_config("sfw_video", variant="gsc", device_geometry=True,
+                     data_dirs_test=(vid,), checkpoint_dir=lib_dir("video"))
+    SFWVideoEvaluator(cfg, sd, device=dev).run(
+        Dataset(cfg, "test", dset="sfw", seed=0),
+        os.path.join(work, "bbox_lib"))
+    n = same_files(os.path.join(d, "test"),
+                   os.path.join(lib_dir("video"), "test"), "sfw-video")
+    import scipy.io
+
+    mats = sorted(os.listdir(os.path.join(work, "bbox_lib")))
+    boxes_equal = mats == sorted(os.listdir(os.path.join(
+        work, "bbox_cli"))) and all(np.array_equal(
+            scipy.io.loadmat(os.path.join(work, "bbox_cli", m))["bbox"],
+            scipy.io.loadmat(os.path.join(work, "bbox_lib", m))["bbox"])
+            for m in mats)
+    print(f"cli sfw-video: {n} strips byte for byte, {len(mats)} .mat boxes "
+          f"{'equal' if boxes_equal else 'DIFFERENT'}", flush=True)
+    if not boxes_equal:
+        raise SystemExit("cli sfw-video's boxes differ from the library's")
+
+    # --- preprocess, landmarks and e2e on phase 14's photos, seeded S3FD
+    # and FAN-4 weights saved as the npz the loaders read
+    photos = os.path.join(work, "photos")
+    paths = uncropped_photos(photos, n=CLI_PHOTOS)
+    pre = os.path.join(work, "pre")
+    printed = run_cli(["preprocess", "--input", photos, "--output", pre],
+                      "preprocess", launches)
+    n_crops = 0
+    for p in paths:
+        if not os.path.isfile(p[:-4] + ".npy"):
+            continue
+        res = offline_crop(imread(p)[..., ::-1], np.load(p[:-4] + ".npy"),
+                           out_size=256)
+        name = os.path.basename(p)[:-4]
+        got_png = os.path.join(pre, name, name + ".png")
+        if res is None:
+            if os.path.exists(got_png):
+                raise SystemExit(f"cli preprocess wrote a crop of {name}")
+            continue
+        if not (np.array_equal(read_png(got_png), res[0].astype(np.uint8))
+                and np.array_equal(np.load(got_png[:-4] + ".npy"), res[1])):
+            raise SystemExit(f"cli preprocess: {name} differs from "
+                             f"offline_crop's")
+        n_crops += 1
+    print(f"cli preprocess: '{line_of(printed, 'preprocessed')}', {n_crops} "
+          f"crops and landmarks equal to offline_crop's", flush=True)
+    if n_crops == 0:
+        raise SystemExit("cli preprocess wrote no crop")
+
+    fan_npz = os.path.join(work, "fan.npz")
+    sfd_npz = os.path.join(work, "sfd.npz")
+    np.savez(fan_npz, **synthetic_fan_weights(0, E2E_STAGES["fan_modules"]))
+    np.savez(sfd_npz, **synthetic_sfd_weights(0))
+    lm_in = os.path.join(work, "lm_in")
+    os.makedirs(lm_in)
+    unmarked = [p for p in paths if not os.path.isfile(p[:-4] + ".npy")][:2]
+    for p in unmarked:
+        os.symlink(p, os.path.join(lm_in, os.path.basename(p)))
+    run_cli(["landmarks", "--input", lm_in, "--fan-weights", fan_npz,
+             "--sfd-weights", sfd_npz], "landmarks", launches)
+    net = build_fan(load_fan_npz(fan_npz), E2E_STAGES["fan_modules"],
+                    device=dev)
+    s3fd = build_s3fd(load_sfd_npz(sfd_npz), device=dev)
+    n_lm = 0
+    for p in unmarked:
+        img = np.ascontiguousarray(imread(p)[..., ::-1])
+        dets = detect_faces(s3fd, img)
+        out_npy = os.path.join(lm_in, os.path.basename(p)[:-4] + ".npy")
+        if not len(dets):
+            if os.path.exists(out_npy):
+                raise SystemExit("cli landmarks wrote a face the library "
+                                 "did not find")
+            continue
+        want = landmarks_from_image(net, img, box=tuple(dets[0, :4]))
+        if not np.array_equal(np.load(out_npy), want):
+            raise SystemExit(f"cli landmarks: {out_npy} differs from the "
+                             f"library's")
+        n_lm += 1
+    print(f"cli landmarks: {n_lm} of {len(unmarked)} photos' landmarks "
+          f"equal to detect_faces + landmarks_from_image's", flush=True)
+    if n_lm == 0:
+        raise SystemExit("cli landmarks found no face")
+    del net, s3fd
+
+    d = ckpt_copy("e2e_ckpt")
+    printed = run_cli(["e2e", "--input", photos, "--output",
+                       os.path.join(work, "e2e_cli"), "--ckpt", d,
+                       "--fan-weights", fan_npz, "--sfd-weights", sfd_npz],
+                      "e2e", launches)
+    pipe = DeshadowPipeline(
+        get_config(checkpoint_dir=d, device_geometry=True,
+                   compact_output=True, compact_ingress=True), sd,
+        fan_weights=load_fan_npz(fan_npz), sfd_weights=load_sfd_npz(sfd_npz),
+        device=dev, batch_size=E2E_SERVE_BATCH, **E2E_STAGES)
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = pipe.run_dir(photos, os.path.join(work, "e2e_lib"),
+                             batch_files=E2E_BATCH_FILES, overlap=True)
+    n = same_files(os.path.join(work, "e2e_cli"),
+                   os.path.join(work, "e2e_lib"), "e2e")
+    got = line_of(printed, "e2e:")
+    counts = {k: stats[k] for k in ("images", "faces", "written")}
+    print(f"cli e2e: '{got}'; the library's counts {counts}; {n} files "
+          f"byte for byte", flush=True)
+    if not all(f"'{k}': {v}" in got for k, v in counts.items()):
+        raise SystemExit("cli e2e's counts differ from the library's")
+    del pipe
+    stop_recording()
+
+    # --- the int8 head on the card: the accumulators in each scale mode
+    # on the head's own input, its forward against bf16's, its throughput
+    # at bench.py's configuration
+    cfg16 = get_config(fold_bn=True, egress_dtype="bfloat16")
+    cfg8 = calibrate_config(dataclasses.replace(cfg16, int8_head=True), sd)
+    m16, m8 = (build_generator(c, sd, dev) for c in (cfg16, cfg8))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.0, 0.9, (BENCH_BATCH, 256, 256, 3))
+                         .astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(size=(BENCH_BATCH, 256, 256, 3))
+                         .astype(np.float32)).to(dev)
+    seen_head = []
+    hook = m8.head.register_forward_pre_hook(
+        lambda mod, inp: seen_head.append(inp[0]))
+    with torch.inference_mode():
+        out8 = m8(x[:INT8_CHECK_BATCH], u[:INT8_CHECK_BATCH])
+        out16 = m16(x[:INT8_CHECK_BATCH], u[:INT8_CHECK_BATCH])
+    hook.remove()
+    head_in = seen_head[0]
+    bounds = cfg8.int8_head_scale
+    w = m8.head.conv.weight
+    for label, scale in (("per channel (auto)", bounds),
+                         ("scalar", max(bounds)), ("dynamic", -1.0)):
+        with torch.inference_mode():
+            xq, wq, _ = quant.quantize_activations(head_in, w, scale)
+            acc = quant.int8_accumulate(xq, wq)
+            ref = quant.int8_accumulate_reference(xq, wq)
+        torch.cuda.synchronize()
+        differ = int((acc != ref).sum())
+        print(f"int8 head, {label} scale: int32 accumulators of "
+              f"{tuple(acc.shape)} from _int_mm against the plain f64 "
+              f"convolution of the codes: {differ} differ (|acc| up to "
+              f"{int(ref.abs().max())})", flush=True)
+        if differ or acc.dtype != torch.int32:
+            raise SystemExit(f"int8 accumulators differ ({label})")
+    head_psnr = psnr(out8[1].float().clamp(0, 1).cpu().numpy(),
+                     out16[1].float().clamp(0, 1).cpu().numpy())
+    print(f"int8 head (auto bounds) against the bf16 head, con_rgb of "
+          f"{INT8_CHECK_BATCH} views: PSNR {head_psnr:.2f} dB (recorded)",
+          flush=True)
+    del out8, out16, seen_head, head_in
+    with torch.inference_mode():
+        turns = alternate_ms({"bf16 head": lambda: m16(x, u),
+                              "int8 head": lambda: m8(x, u)},
+                             reps=2, iters=INT8_BENCH_ITERS)
+        # the head alone at the bench batch, on its own input
+        seen_head = []
+        hook = m8.head.register_forward_pre_hook(
+            lambda mod, inp: seen_head.append(inp[0]))
+        m8(x, u)
+        hook.remove()
+        h = seen_head[0]
+        head_turns = alternate_ms({
+            "bf16 conv": lambda: blocks_module.conv2d_same(h, m16.head.conv),
+            "int8 conv": lambda: m8.head(h)}, reps=2, iters=INT8_BENCH_ITERS)
+    ms16, ms8 = (float(np.median(v)) for v in turns.values())
+    hc16, hc8 = (float(np.median(v)) for v in head_turns.values())
+    print(f"B={BENCH_BATCH} 256x256 bf16 folded: bf16 head {ms16:.2f} "
+          f"ms/forward ({BENCH_BATCH * 1e3 / ms16:.1f} faces/s), int8 head "
+          f"{ms8:.2f} ms/forward ({BENCH_BATCH * 1e3 / ms8:.1f} faces/s), "
+          f"medians of 2 turns of {INT8_BENCH_ITERS}; phase 6: "
+          f"{bench_faces:.1f} faces/s; the head conv alone: bf16 "
+          f"{hc16:.3f} ms, int8 {hc8:.3f} ms ({smi})", flush=True)
+    del m16, m8, x, u, h, seen_head
+    torch.cuda.empty_cache()
+
+    # --- K1 and K2 at every shape the CLI gave them
+    check_gen = torch.Generator(device=dev).manual_seed(15)
+    k1_err = k2_err = 0.0
+    for name, shape, dtype in sorted(seen, key=str):
+        if name == "nonlocal_attention":
+            k1_err = max(k1_err, check_k1(check_gen, shape, dtype))
+        else:
+            k2_err = max(k2_err, check_k2_case(check_gen, shape, dtype))
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err}
 
 
 if __name__ == "__main__":

@@ -168,9 +168,20 @@ def test_build_generator_raises_without_cuda():
 
 
 def test_config_rejects_unported_options():
-    for kw in (dict(int8_head=True), dict(s2d_convs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP F4"):
-            get_config(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP F4"):
+        get_config(s2d_convs=True)
+    # a mesh over more than one device waits for F1
+    with pytest.raises(NotImplementedError, match="ROADMAP F1"):
+        get_config(mesh_shape=(2, 1))
+    assert get_config(mesh_shape=(1, 1)).mesh_axis_names == ("data", "frame")
+    # the int8 head is ported (ops/quant.py): both forms build
+    assert get_config(int8_head=True).int8_head
+    assert get_config(int8_head_split=True, int8_head_scale=2.0).int8_head_split
+    with pytest.raises(NotImplementedError, match="float32"):
+        get_config(param_dtype="bfloat16")
+    with pytest.raises(ValueError, match="bottleneck"):
+        get_config(img_size=64, map_size=16)
+    assert get_config(img_size=64, map_size=8).map_size == 8
     # the train preset's device-darkening and uint8 wires are ported:
     # both build
     assert get_config("train", device_darken=True).device_darken

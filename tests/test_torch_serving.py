@@ -51,24 +51,33 @@ def requests():
     return images, lms
 
 
-@pytest.mark.parametrize("device_geometry,compact", [
-    (True, False),     # the serving default: maps rasterized on the device
-    (False, False),    # host-rasterized maps
-    (True, True),      # uint16 ingress, uint8 / f16 egress
+@pytest.mark.parametrize("device_geometry,compact,int8", [
+    # the serving default: maps rasterized on the device
+    pytest.param(True, False, False, id="True-False"),
+    pytest.param(False, False, False, id="False-False"),  # host maps
+    # uint16 ingress, uint8 / f16 egress
+    pytest.param(True, True, False, id="True-True"),
+    # the int8 head, calibrated, then folded
+    pytest.param(True, False, True, id="True-False-int8"),
 ])
-def test_service_matches_jax(variables, requests, device_geometry, compact):
+def test_service_matches_jax(variables, requests, device_geometry, compact,
+                             int8):
     images, lms = requests
     wires = dict(device_geometry=device_geometry, compact_output=compact,
                  compact_ingress=compact)
-    ref = JaxService(jax_config("in_the_wild", img_size=S,
-                                compute_dtype="float32", n_res=N_RES),
-                     variables, batch_size=2, **wires).remove_shadows(
-        images, lms)
+    head = dict(int8_head=True, fold_bn=True) if int8 else {}
+    ref_svc = JaxService(jax_config("in_the_wild", img_size=S,
+                                    compute_dtype="float32", n_res=N_RES,
+                                    **head),
+                         variables, batch_size=2, **wires)
+    ref = ref_svc.remove_shadows(images, lms)
     svc = ShadowRemovalService(
         get_config(img_size=S, compute_dtype="float32", n_res=N_RES,
-                   compact_output=compact, compact_ingress=compact),
+                   compact_output=compact, compact_ingress=compact, **head),
         from_jax_variables(variables), batch_size=2, device="cpu",
         device_geometry=device_geometry)
+    # both services calibrate the head from the unfolded weights
+    assert svc.config.int8_head_scale == ref_svc.config.int8_head_scale
     out = svc.remove_shadows(images, lms)
     assert len(out) == len(ref) == 3
     for ours, theirs in zip(out, ref):
@@ -80,11 +89,19 @@ def test_service_matches_jax(variables, requests, device_geometry, compact):
         # summation order.  Compact egress quantizes pred to 1/255 steps,
         # so a value on a rounding edge moves by one step.
         atol = 1.0 / 255 + 1e-6 if compact else 1e-4
+        if int8:
+            # a head input that differs by rounding can flip one code at a
+            # .5 boundary: one code step of each head channel on top
+            # (max over input channel and tap of |w| * bound / 127)
+            w = np.abs(svc.gen.head.conv.weight.detach().numpy())
+            bound = np.asarray(svc.config.int8_head_scale) / 127.0
+            atol += float((w * bound[None, :, None, None]).max(
+                axis=(1, 2, 3)).sum())
         np.testing.assert_allclose(ours["pred"], theirs["pred"], atol=atol)
         # mask_pred leaves as f16 when compact: 2^-11 relative
         np.testing.assert_allclose(ours["mask_pred"],
                                    np.asarray(theirs["mask_pred"], np.float32),
-                                   atol=2e-3 if compact else 1e-4)
+                                   atol=2e-3 if compact else atol)
 
 
 def test_service_raises_when_batch_overflows(variables):
