@@ -3,10 +3,13 @@ pipeline, the GAN train step, `fit`) and evaluation (UCB, SFW, SFW video,
 in-the-wild) of the three generator variants (gsc, tsm, rgb).
 
 Port of `blindshadowremoval_tpu/config.py`, with every field of it.  The
-options whose code paths are not ported (a mesh other than one device,
-ROADMAP F1; the space-to-depth convs, F4) raise `NotImplementedError`
-naming the item, so a caller never silently gets another configuration
-than it asked for.
+mesh fields are accepted as the JAX package accepts them and, as there,
+read by no code: a mesh takes its shape from the caller
+(`parallel/mesh.py:make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)`, or
+`distributed.py:global_mesh`), which checks it against the devices.  The
+option whose code path is not ported (the space-to-depth convs, ROADMAP
+F4) raises `NotImplementedError` naming the item, so a caller never
+silently gets another configuration than it asked for.
 """
 
 from __future__ import annotations
@@ -111,7 +114,7 @@ class Config:
                                        # the dynamic per-sample max
     int8_head_split: bool = False      # gsc: int8 for the offset channel
                                        # `con` only, the tanh gain exact
-    # devices: one, until the multi-device port (ROADMAP F1)
+    # devices: inert, as in JAX; pass them to parallel/mesh.py:make_mesh
     mesh_shape: tuple = (1, 1)         # (data, frame) mesh axes
     mesh_axis_names: tuple = ("data", "frame")
     param_dtype: str = "float32"       # the parameters' dtype; the only one
@@ -123,10 +126,10 @@ class Config:
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r}; choose "
                              f"from {VARIANTS}")
-        if tuple(self.mesh_shape) != (1, 1):
-            raise NotImplementedError(
-                f"mesh_shape={tuple(self.mesh_shape)}: runs over more than "
-                "one device are not ported (ROADMAP F1)")
+        # sequences as the JAX package takes them, kept hashable
+        object.__setattr__(self, "mesh_shape", tuple(self.mesh_shape))
+        object.__setattr__(self, "mesh_axis_names",
+                           tuple(self.mesh_axis_names))
         if self.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: parameters are float32 "

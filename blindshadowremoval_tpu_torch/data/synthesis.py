@@ -77,12 +77,16 @@ def darkened_views_from_draws(g1: torch.Tensor, g2: torch.Tensor,
     return interleave(img_aug), interleave(img_dark)
 
 
-def derive_darkened_views(gen: torch.Generator, gt_raw: torch.Tensor):
+def derive_darkened_views(gen: torch.Generator, gt_raw: torch.Tensor,
+                          rows: tuple[int, int] | None = None):
     """The `device_darken` wire (synthesis.py:45-70): the tone-curve pair
     of every mirrored pair of `gt_raw`, its gains drawn from `gen` on the
-    device."""
-    g1, g2 = draw_face_darken(gen, gt_raw.shape[0] // 2, gt_raw.device)
-    return darkened_views_from_draws(g1, g2, gt_raw)
+    device.  `rows` (global views, first view of `gt_raw`): the gains are
+    drawn for the global batch and `gt_raw`'s pairs keep theirs."""
+    total, first = rows or (gt_raw.shape[0], 0)
+    g1, g2 = draw_face_darken(gen, total // 2, gt_raw.device)
+    pairs = slice(first // 2, (first + gt_raw.shape[0]) // 2)
+    return darkened_views_from_draws(g1[pairs], g2[pairs], gt_raw)
 
 
 def draw_compose(gen: torch.Generator, b: int, device) -> dict:
@@ -121,10 +125,16 @@ def compose_from_draws(draws: dict, mask: torch.Tensor, gt: torch.Tensor,
 
 def compose_shadow_image(gen: torch.Generator, mask: torch.Tensor,
                          gt: torch.Tensor, img_dark: torch.Tensor,
-                         face: torch.Tensor):
+                         face: torch.Tensor,
+                         rows: tuple[int, int] | None = None):
     """Batched compositor with its draws taken from `gen` (on the inputs'
-    device).  Returns (img, mask_sv, mask_edge), each [B,S,S,3]."""
-    draws = draw_compose(gen, gt.shape[0], gt.device)
+    device).  Returns (img, mask_sv, mask_edge), each [B,S,S,3].  `rows`
+    (global batch size, first row of these B): the draws are made for the
+    global batch and these rows keep theirs, so a batch split over ranks
+    gets the noise of the whole batch in one process."""
+    b = gt.shape[0]
+    total, first = rows or (b, 0)
+    draws = _take(draw_compose(gen, total, gt.device), slice(first, first + b))
     return compose_from_draws(draws, mask, gt, img_dark, face)
 
 

@@ -14,8 +14,8 @@ Usage:
     outputs = svc.remove_shadows(images, landmarks)   # N images in, N out
     with BatchingFrontend(svc, max_delay_ms=5.0) as fe:
         result = fe.submit(image, landmarks).result()
-
-Not ported yet: the `mesh` option (ROADMAP F1).
+    svc = ShadowRemovalService(cfg, state_dict, batch_size=64,
+                               mesh=make_mesh((2,), ("data",)))
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ from blindshadowremoval_tpu_torch.geometry.triangulation import (
 from blindshadowremoval_tpu_torch.models import build_generator
 from blindshadowremoval_tpu_torch.ops.calibration import calibrate_config
 from blindshadowremoval_tpu_torch.ops.image import dequantize
+from blindshadowremoval_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    gather,
+    shard_batch,
+)
 
 
 @dataclasses.dataclass
@@ -59,15 +64,33 @@ class ShadowRemovalService:
     `state_dict` holds unfolded weights (see `models/build_generator`).
     An int8 head at the auto bound (`int8_head_scale` 0.0) is calibrated
     from them (ops/calibration.py) before they are folded; `config` is
-    the calibrated config after construction."""
+    the calibrated config after construction.
+
+    `mesh` (parallel/mesh.py:make_mesh; JAX serving.py:61-92): each batch
+    is split over the mesh's "data" axis, one generator replica on each
+    shard's device, and put back together in order on the first of them
+    (`device` is then that device); `batch_size` must be a multiple of the
+    mesh size.  The model has no cross-batch op, so no collective runs.
+    The replicas are called in turn from one thread; on separate cards
+    their kernels overlap, as CUDA launches return at once."""
 
     config: Config
     state_dict: Any = None
     batch_size: int = 64
     device: Any = None
     device_geometry: bool = True
+    mesh: Any = None
 
     def __post_init__(self):
+        self._sharding = None
+        if self.mesh is not None:
+            n = self.mesh.size
+            if self.batch_size % n:
+                raise ValueError(
+                    f"batch_size {self.batch_size} not divisible by the "
+                    f"{n}-device mesh")
+            self._sharding = batch_sharding(self.mesh)
+            self.device = self._sharding.devices[0]
         self.device = resolve_device(self.device)
         # calibrated before build_generator folds: folding consumes the
         # BatchNorm statistics the bounds come from
@@ -80,6 +103,10 @@ class ShadowRemovalService:
             sd = init_generator_vars(cfg)[1]   # build_generator's draw
         cfg = self.config = calibrate_config(cfg, sd)
         self.gen = build_generator(cfg, sd, self.device)
+        self._replicas = [self.gen]
+        if self._sharding is not None:
+            self._replicas += [build_generator(cfg, sd, d)
+                               for d in self._sharding.devices[1:]]
         # snapshot the wires: the call paths below read these, even if a
         # caller replaces the config afterwards
         self._compact = cfg.compact_output
@@ -106,8 +133,9 @@ class ShadowRemovalService:
 
     def stage(self, chunk: Sequence[dict]) -> tuple:
         """Stack one chunk of preprocessed views (at most batch_size, the
-        tail padded to batch_size) and send it to the device.  Returns the
-        device tensors `forward_staged` takes."""
+        tail padded to batch_size) and send it to the device (over a mesh:
+        each tensor as the list of its shards).  Returns what
+        `forward_staged` takes."""
         n = len(chunk)
         bs = self.batch_size
         if n > bs:
@@ -124,7 +152,10 @@ class ShadowRemovalService:
             if n < bs:   # pad the tail batch to the batch shape
                 pad = np.full((bs - n,) + arr.shape[1:], fill, arr.dtype)
                 arr = np.concatenate([arr, pad])
-            return torch.from_numpy(arr).to(self.device)
+            t = torch.from_numpy(arr)
+            if self._sharding is not None:
+                return shard_batch(t, self._sharding)
+            return t.to(self.device)
 
         if self._devgeo:
             return (stack("img"), stack("lm"), stack("face_pts"),
@@ -135,7 +166,17 @@ class ShadowRemovalService:
     @torch.inference_mode()
     def _forward(self, staged: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """Device side of one batch: maps, generator, clip, face gate and
-        the egress cast."""
+        the egress cast; over a mesh, each shard on its replica, the
+        results gathered on `device`."""
+        if self._sharding is None:
+            return self._forward_on(self.gen, staged)
+        outs = [self._forward_on(gen, part)
+                for gen, part in zip(self._replicas, zip(*staged))]
+        return tuple(gather(list(o), self.device) for o in zip(*outs))
+
+    @torch.inference_mode()
+    def _forward_on(self, gen: torch.nn.Module,
+                    staged: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         s = self.config.img_size
         if self._devgeo:
             img, lm, face_pts, uv_tris, face_tris, reg_tris = staged
@@ -147,11 +188,11 @@ class ShadowRemovalService:
         img, uv = dequantize(img), dequantize(uv)
         variant = self.config.variant
         if variant == "rgb":
-            rgb = self.gen(img, uv)
+            rgb = gen(img, uv)
             dif = rgb[..., :1] * 0
         else:
-            out = (self.gen(img, uv, reg, frame=1, share=True)
-                   if variant == "tsm" else self.gen(img, uv))
+            out = (gen(img, uv, reg, frame=1, share=True)
+                   if variant == "tsm" else gen(img, uv))
             _, rgb, _, dif = out
         rgb = rgb.clamp(0.0, 1.0)
         if face is not None:

@@ -38,6 +38,8 @@ from torch import nn
 
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import nonlocal_attention
 from blindshadowremoval_tpu_torch.ops.quant import int8_conv, pad_same, same_pad
+from blindshadowremoval_tpu_torch.parallel.distributed import all_sum
+from blindshadowremoval_tpu_torch.parallel.mesh import batch_group
 
 LEAKY_SLOPE = 0.3
 BN_EPS = 1e-3
@@ -54,7 +56,9 @@ class BatchNorm(nn.BatchNorm2d):
     running = 0.99 * running + 0.01 * batch, with the BIASED batch variance
     (nn.BatchNorm2d moves them with the unbiased one, n / (n - 1) larger).
     `update_stats = False` (see `frozen_stats`) keeps the batch statistics
-    but leaves the running ones alone."""
+    but leaves the running ones alone.  Inside `with mesh:` of a mesh over
+    processes (parallel/), training mode reduces the moments over every
+    rank, so the running statistics are the same on each."""
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
@@ -69,9 +73,21 @@ class BatchNorm(nn.BatchNorm2d):
             return y.to(x.dtype)
         # Flax's batch statistics: the mean and the mean of squares in one
         # pass, var = max(0, E[x^2] - E[x]^2)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        group = batch_group()
+        if group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            meansq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            # the batch is split over the ranks: the moments are the whole
+            # batch's (as GSPMD gives the JAX step), from the sums of x and
+            # x^2 and the count, reduced with their gradients
+            c = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() / c)
+            sums = all_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                      (xf * xf).sum(dim=(0, 2, 3)), count]),
+                           group)
+            mean, meansq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(meansq - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(

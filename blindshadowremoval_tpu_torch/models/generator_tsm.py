@@ -10,30 +10,42 @@ and warps them out again (the last three channels).  So res0 takes
 NonLocal blocks stay at 257 channels (D=128).  Parameter names are the GSC
 generator's, so the weight bridges and the folding serve both.
 
-Only the local mode is ported: the frames of a group lie in one batch.  The
-collective mode (frames spread over devices, `axis_name`) waits for the
-multi-device port (ROADMAP F1).
+In the local mode the frames of a group lie in one batch.  In the
+collective mode (`axis_name`, generator_tsm.py:31-60) the frames of every
+group are spread over the ranks of the mesh axis `axis_name`: each rank
+holds its slice of every group's frames, reduces it, and the max and the
+mean are then all-reduced over that axis's process group (parallel/), so
+N frames over N ranks cost two all-reduces a ShareLayer.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from blindshadowremoval_tpu_torch.geometry.warp import batch_map_offsets
 from blindshadowremoval_tpu_torch.models.generator import GSCGenerator
+from blindshadowremoval_tpu_torch.parallel.distributed import all_max, all_sum
+from blindshadowremoval_tpu_torch.parallel.mesh import active_mesh
 
 
 class ShareLayer(nn.Module):
     """Cross-frame max+mean pooling in canonical face space
-    (generator_tsm.py:28-75), on NCHW features; no parameters."""
+    (generator_tsm.py:28-75), on NCHW features; no parameters.
+
+    Local mode (`axis_name=None`): [G*F, C, h, w] is G groups of `frame`
+    views, reduced over the views.  Collective mode (`axis_name="frame"`):
+    run inside `with mesh:` of a mesh over processes; `frame` is the views
+    of a group on this rank, and the max is all-reduced (MAX) and the mean
+    of the local means all-reduced (SUM) and divided by the axis size, as
+    JAX's pmax and pmean of the local reductions: the same result as all
+    frames on one device.  Both reductions carry their gradients across
+    the ranks."""
 
     def __init__(self, axis_name: str | None = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "the collective ShareLayer (frames over devices) is not "
-                "ported yet (ROADMAP F1)")
+        self.axis_name = axis_name
 
     def forward(self, x: torch.Tensor, reg: torch.Tensor, frame: int,
                 share: bool | torch.Tensor = True) -> torch.Tensor:
@@ -47,8 +59,7 @@ class ShareLayer(nn.Module):
         return torch.where(share, self._shared(x, reg, frame),
                            torch.cat([x, x], dim=1))
 
-    @staticmethod
-    def _shared(x: torch.Tensor, reg: torch.Tensor, frame: int):
+    def _shared(self, x: torch.Tensor, reg: torch.Tensor, frame: int):
         # the f32 offset field promotes the first warp to f32, so the max,
         # the mean and the second warp run in f32; only the result returns
         # to the compute dtype (generator_tsm.py:64-69)
@@ -56,7 +67,19 @@ class ShareLayer(nn.Module):
         gf, h, w, c = x_reg.shape
         grouped = x_reg.reshape(gf // frame, frame, h, w, c)
         # amax splits the gradient evenly between ties, as jnp.max does
-        x_share = torch.cat([grouped.amax(dim=1), grouped.mean(dim=1)], dim=3)
+        x_max, x_mean = grouped.amax(dim=1), grouped.mean(dim=1)
+        if self.axis_name is not None:
+            mesh = active_mesh()
+            if mesh is None or mesh.ranks is None:
+                raise RuntimeError(
+                    f"ShareLayer(axis_name={self.axis_name!r}) reduces over "
+                    "a mesh axis: call it inside `with mesh:` of a mesh over "
+                    "processes (parallel/distributed.py:global_mesh)")
+            group = mesh.group(self.axis_name)
+            if group is not None:          # None: one process, no group
+                x_max = all_max(x_max, group)
+                x_mean = all_sum(x_mean, group) / dist.get_world_size(group)
+        x_share = torch.cat([x_max, x_mean], dim=3)
         x_share = x_share[:, None].expand(-1, frame, -1, -1, -1).reshape(
             gf, h, w, 2 * c)
         out = batch_map_offsets(x_share, reg[..., 3:]).to(x.dtype)
@@ -68,7 +91,8 @@ class TSMGenerator(GSCGenerator):
 
     forward(inputs, uv, reg, frame=1, share=True): `reg` [B,S,S,6] holds
     the offset fields into (0:3) and out of (3:6) canonical face space;
-    the batch is groups of `frame` views of one face."""
+    the batch is groups of `frame` views of one face (with `axis_name`,
+    this rank's `frame` views of each group)."""
 
     SHARE_WIDTH = 2
 

@@ -1,0 +1,5 @@
+from blindshadowremoval_tpu_torch.parallel.mesh import (  # noqa: F401
+    batch_sharding,
+    make_mesh,
+    replicate,
+)

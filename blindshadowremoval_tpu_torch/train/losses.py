@@ -8,6 +8,13 @@ averages (h+v)/2; the hinge loss is mean(max(0, 1 - y_true * y_pred)); the
 perceptual loss sums the mean |real - fake| of the five VGG taps; the
 gradient loss compares (dx+dy)*5 at scales {1,2,4,8,16}, reweighted 1/30/10
 (global/shadow/edge) and normalized by the edge-mask sum.
+
+Inside `with mesh:` of a mesh over processes (parallel/), each rank holds
+an equal share of the batch.  A plain mean is then the mean of the ranks'
+means.  A ratio of batch-wide sums is not: its denominator (a mask sum,
+constant in the parameters) is summed over the ranks first, and each rank
+returns its numerator's share scaled so that the ranks' mean is the
+whole batch's ratio (`_batch_ratio`).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from blindshadowremoval_tpu_torch.geometry.warp import resize_bilinear
 from blindshadowremoval_tpu_torch.ops.image import (
@@ -23,13 +31,25 @@ from blindshadowremoval_tpu_torch.ops.image import (
     rgb_to_hsv,
     rgb_to_yuv,
 )
+from blindshadowremoval_tpu_torch.parallel.distributed import all_sum
+from blindshadowremoval_tpu_torch.parallel.mesh import batch_group
+
+
+def _batch_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / (den + 1e-6) over the whole batch.  Under a mesh over
+    processes: n * num / (the ranks' summed den + 1e-6), whose mean over
+    the n ranks is the whole batch's ratio."""
+    group = batch_group()
+    if group is None:
+        return num / (den + 1e-6)
+    return num * dist.get_world_size(group) / (all_sum(den, group) + 1e-6)
 
 
 def _masked_mean(diff: torch.Tensor, mask: torch.Tensor | None,
                  channels: int) -> torch.Tensor:
     if mask is None:
         return diff.mean()
-    return (diff * mask).sum() / (mask.sum() + 1e-6) / channels
+    return _batch_ratio((diff * mask).sum(), mask.sum()) / channels
 
 
 def l1_loss(x, y, mask=None):
@@ -51,7 +71,7 @@ def _yuv_channel_losses(x, y, mask, sq: bool):
     for k in range(3):
         dk = diff[..., k:k + 1]
         if mask is not None:
-            total = total + (dk * mask).sum() / (mask.sum() + 1e-6)
+            total = total + _batch_ratio((dk * mask).sum(), mask.sum())
         else:
             total = total + dk.mean()
     return total / 2.0
@@ -80,8 +100,8 @@ def l1_loss_hsv(x, y, mask=None):
     dv = (hx[..., 2:3] - hy[..., 2:3]).abs()
     if mask is not None:
         m = mask[..., :1]
-        h_loss = (dh * m).sum() / (m.sum() + 1e-6)
-        v_loss = (dv * m).sum() / (m.sum() + 1e-6)
+        h_loss = _batch_ratio((dh * m).sum(), m.sum())
+        v_loss = _batch_ratio((dv * m).sum(), m.sum())
     else:
         h_loss, v_loss = dh.mean(), dv.mean()
     return (h_loss + v_loss) / 2.0
@@ -121,7 +141,7 @@ def multi_scale_gradient_loss(pred, gt, mask_bi, mask_edge):
         d = (get_img_grad(pred, scale) - get_img_grad(gt, scale)).abs()
         total = total + ((d + 30.0 * d * mask_bi + 10.0 * d * mask_edge)
                          / 41.0).sum()
-    return total / (mask_edge.sum() + 1e-6)
+    return _batch_ratio(total, mask_edge.sum())
 
 
 def reconstruction_losses(gs, rgb, gt, gray_gt, mask_bi, mask_edge):

@@ -35,7 +35,20 @@ Wires: a batch without `img_dark` is the `device_darken` wire, whose raw
 crops the step turns into the tone-curve pair (one draw a mirrored pair,
 data/synthesis.py:derive_darkened_views); a batch with `lm` is the
 device-geometry wire.  Randomness comes from an explicit `torch.Generator`
-on the step's device.  `TrainState.state_dict` / `load_state_dict` give the
+on the step's device.
+
+Data parallel (parallel/): called inside `with mesh:` of a mesh over
+processes, each rank passes its rows of the batch (split over every rank,
+as the JAX step's P(("data", "frame"))) and the same generator state.
+Every rank draws the noise of the whole batch and keeps its rows, so the
+step sees what one process sees on the whole batch; a rank holds whole
+mirrored pairs (the swap and the saturation gate are per pair).  The
+BatchNorm moments and the masked losses' denominators reduce over the
+ranks (models/blocks.py, train/losses.py); each network's gradients are
+averaged in one flat all-reduce before its update (`torch.autograd.grad`
+sets `.grad` by hand, so DDP's hooks would never fire), and the returned
+losses are the whole batch's, bitwise the same on every rank.
+`TrainState.state_dict` / `load_state_dict` give the
 whole state as plain tensors (utils/checkpoint.py saves it;
 models/weights.py:train_state_from_jax makes one from a JAX state).
 """
@@ -46,6 +59,7 @@ import dataclasses
 import sys
 
 import torch
+import torch.distributed as dist
 
 from blindshadowremoval_tpu_torch.config import Config, resolve_device
 from blindshadowremoval_tpu_torch.data.synthesis import (
@@ -72,6 +86,11 @@ from blindshadowremoval_tpu_torch.ops.image import (
     flip_left_right,
     rgb_to_grayscale,
 )
+from blindshadowremoval_tpu_torch.parallel.distributed import (
+    all_sum,
+    mean_gradients,
+)
+from blindshadowremoval_tpu_torch.parallel.mesh import batch_group
 from blindshadowremoval_tpu_torch.train.losses import (
     hinge_loss,
     l1_loss,
@@ -257,15 +276,22 @@ class Trainer:
         return state
 
     # ------------------------------------------------------- augmentation
-    def _saturation_aug(self, gen: torch.Generator, gt, img_dark):
+    def _saturation_aug(self, gen: torch.Generator, gt, img_dark,
+                        rows: tuple[int, int] | None = None):
         """Per-pair random saturation (train_test_GSC.py:220-238): one gate
         per pair, independent factors in [0.5, 2) for gt and its dark
-        twin."""
-        pairs = gt.shape[0] // 2
-        dev = gt.device
-        keep = torch.rand((pairs,), generator=gen, device=dev) > 0.5
-        fg = 0.5 + 1.5 * torch.rand((pairs,), generator=gen, device=dev)
-        fd = 0.5 + 1.5 * torch.rand((pairs,), generator=gen, device=dev)
+        twin.  `rows` (global views, first view): drawn for the global
+        batch, these pairs keep theirs."""
+        total, first = rows or (gt.shape[0], 0)
+        mine = slice(first // 2, (first + gt.shape[0]) // 2)
+
+        def draw():
+            return torch.rand((total // 2,), generator=gen,
+                              device=gt.device)[mine]
+
+        keep = draw() > 0.5
+        fg = 0.5 + 1.5 * draw()
+        fd = 0.5 + 1.5 * draw()
 
         def per_view(v):                   # [pairs] -> [2*pairs, 1, 1]
             return v.repeat_interleave(2).reshape(-1, 1, 1)
@@ -293,6 +319,22 @@ class Trainer:
             return True
         return torch.rand((), generator=gen, device=self.device) > 0.5
 
+    @staticmethod
+    def _rows(views: int) -> tuple[int, int] | None:
+        """(global views, this rank's first view) of a rank's `views` under
+        a mesh over processes; None on one process."""
+        group = batch_group()
+        if group is None:
+            return None
+        n = dist.get_world_size(group)
+        if views % 2:
+            raise ValueError(
+                f"{views} views a rank ({views * n} over {n} ranks) split a "
+                "mirrored pair: each rank must hold whole pairs, so a batch "
+                f"of {views * n} views runs on at most {views * n // 2} "
+                "ranks, with an even number of views each")
+        return views * n, dist.get_rank(group) * views
+
     # -------------------------------------------------------------- step
     def train_step(self, state: TrainState, batch: dict,
                    generator: torch.Generator, train: bool = True):
@@ -306,12 +348,18 @@ class Trainer:
         (fetching them is the caller's sync)."""
         cfg = self.config
         batch = {k: dequantize(v.to(self.device)) for k, v in batch.items()}
+        group = batch_group()
+        rows = self._rows(batch["gt"].shape[0])
+        # under a mesh, the draws cover the global batch (see the header)
+        sharded = {} if rows is None else {"rows": rows}
         if "img_dark" in batch:
             gt, img_dark = batch["gt"], batch["img_dark"]
         else:
-            gt, img_dark = derive_darkened_views(generator, batch["gt"])
+            gt, img_dark = derive_darkened_views(generator, batch["gt"],
+                                                 **sharded)
         if train:
-            gt, img_dark = self._saturation_aug(generator, gt, img_dark)
+            gt, img_dark = self._saturation_aug(generator, gt, img_dark,
+                                                **sharded)
         if "lm" in batch:
             maps = device_geometry_maps(
                 batch["lm"], batch["face_pts"], batch["uv_tris"],
@@ -323,7 +371,7 @@ class Trainer:
             uv, reg, face = batch["uv"], batch["reg"], batch["face"]
             ext_mask = batch["mask"]
         img, mask_sv, _ = compose_shadow_image(generator, ext_mask, gt,
-                                               img_dark, face)
+                                               img_dark, face, **sharded)
         img = self._mirror_consistency(generator, img) if train else gt
         mask_bi = (mask_sv > 0.01).float()
         mask_edge = find_edge(mask_sv)
@@ -377,6 +425,9 @@ class Trainer:
                 d_grads = torch.autograd.grad(d_real + d_fake, disc_params)
 
         if train:
+            if group is not None:
+                g_grads = mean_gradients(g_grads, group)
+                d_grads = mean_gradients(d_grads, group)
             for params, grads, opt, sched in (
                     (gen_params, g_grads, state.gen_opt, state.gen_sched),
                     (disc_params, d_grads, state.disc_opt, state.disc_sched)):
@@ -392,6 +443,12 @@ class Trainer:
                   "gen": gan, "per": per, "mask": l1_loss(mask22, mask_bi),
                   "disc_real": d_real, "disc_fake": d_fake}
         losses = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            # each rank's share has the ranks' mean as the batch's value
+            mean = all_sum(torch.stack([losses[k].float()
+                                        for k in LOSS_NAMES]),
+                           group) / dist.get_world_size(group)
+            losses = dict(zip(LOSS_NAMES, mean.unbind()))
         figs = {"img": img, "gt": gt, "pred": rgb.detach(), "gs": gs.detach(),
                 "mask_edge": mask_edge}
         return state, losses, figs

@@ -29,11 +29,22 @@ pipeline; the detector and aligner in f32 against the CPU; the
 `python -m blindshadowremoval_tpu_torch` (phase 15: train, infer with both
 engines and the int8 head, ucb, sfw, sfw-video, preprocess, landmarks and
 e2e, each against the same call through the library; the int8 head's
-int32 accumulators against their plain version), and, after phases 13 to
-15, prints one JSON line with every kernel and, last,
-`{"ok": true, "device": {...}}`.  Any failure ends
-the run with a non-zero exit and no result line.  Exits 1 at once when CUDA
+int32 accumulators against their plain version), runs over more than one
+device (phase 16: the service over a mesh of two entries on the card
+against one device; the full-width sharded train step through one NCCL
+rank; then two gloo ranks, processes of their own sharing the card, with
+the full-width sharded step bitwise equal across the ranks after each
+step, an f32 sharded step against the one-process step, the TSM video
+forward with the collective ShareLayer against the local one, and K1 and
+K2 at every shape these runs gave them against their plain versions), and,
+after phases 13 to 16, prints one JSON line with every kernel and, last,
+`{"ok": true, "device": {...}}`.  Any failure ends the run with a non-zero
+exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
+
+    python3 chip_smoke.py --parallel-rank ADDR RANK WORK
+
+is one of phase 16's gloo ranks, started by phase 16 itself.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -56,6 +68,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -119,6 +132,7 @@ from blindshadowremoval_tpu_torch.models.sfd import (
     load_sfd_npz,
 )
 from blindshadowremoval_tpu_torch.models.sfd import nms as sfd_nms
+from blindshadowremoval_tpu_torch.models.generator_tsm import TSMGenerator
 from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
     fan_from_jax,
@@ -148,6 +162,8 @@ from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
 from blindshadowremoval_tpu_torch.ops.image import rgb_to_grayscale
 from blindshadowremoval_tpu_torch.ops.image import ssim as ssim_fn
 from blindshadowremoval_tpu_torch.ops.tonecurve import draw_face_darken
+from blindshadowremoval_tpu_torch.parallel import distributed
+from blindshadowremoval_tpu_torch.parallel.mesh import make_mesh
 from blindshadowremoval_tpu_torch.train import loop as train_loop
 from blindshadowremoval_tpu_torch.train import trainer as trainer_module
 from blindshadowremoval_tpu_torch.train.losses import (
@@ -776,6 +792,18 @@ def main() -> int:
     max_err = max(max_err, clip["k1_err"])
     k2_err = max(k2_err, clip["k2_err"])
 
+    phase("16 parallel: the train step sharded over ranks, the service "
+          "over a mesh")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        par = parallel_path(dev, smi, work)
+    max_err = max(max_err, par["k1_err"])
+    k2_err = max(k2_err, par["k2_err"])
+    par_k1 = {k: v if isinstance(v, int) else v[0]
+              for k, v in par["launches"].items()}
+    par_k2 = {k: v[1] for k, v in par["launches"].items()
+              if not isinstance(v, int)}
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
@@ -786,18 +814,26 @@ def main() -> int:
           + "; front end " + ", ".join(f"{k} K1 {v}"
                                        for k, v in front["launches"].items())
           + "; cli " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
-                                 for k, v in clip["launches"].items()))
+                                 for k, v in clip["launches"].items())
+          + "; parallel " + ", ".join(f"{k} K1 {v}" for k, v in
+                                      par_k1.items())
+          + ", K2 " + ", ".join(f"{k} {v}" for k, v in par_k2.items()))
     fit_k1 = sum(v[0] for v in fit.values())
     fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
                  {**timed, **var["k1"]}.items()]
+    k1_shapes.append(dict(shape=list(PARALLEL_ATTN_SHAPE),
+                          path="sharded train step, per rank", **par["k1"]))
+    # the sharded step's own launches: the NCCL rank's and both gloo ranks'
+    par_train = [k for k in par_k1 if "train" in k]
     print(json.dumps({"kernels": [{
         "name": "nonlocal_attn_fwd",
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:70",
         "launches": (main_launches + fit_k1
-                     + front["launches"]["run_dir overlapped"]),
+                     + front["launches"]["run_dir overlapped"]
+                     + sum(par_k1[k] for k in par_train)),
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -813,14 +849,16 @@ def main() -> int:
                              **{f"front end {k}": v
                                 for k, v in front["launches"].items()},
                              **{f"cli {k}": v[0]
-                                for k, v in clip["launches"].items()}},
+                                for k, v in clip["launches"].items()},
+                             **{f"parallel {k}": v
+                                for k, v in par_k1.items()}},
         "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn_bwd.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:117",
-        "launches": k2_train + fit_k2,
+        "launches": k2_train + fit_k2 + sum(par_k2[k] for k in par_train),
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": bwd_plain_ms,
@@ -833,12 +871,18 @@ def main() -> int:
                              **{f"fit {k}": v[1] for k, v in fit.items()},
                              **{f"cli {k}": v[1]
                                 for k, v in clip["launches"].items()
-                                if v[1]}},
+                                if v[1]},
+                             **{f"parallel {k}": v
+                                for k, v in par_k2.items()}},
         "shapes": [dict(shape=list(shape), ms=rec[0], plain_ms=rec[1],
                         library_ms=rec[2], bound_ms=rec[3], bound_by=rec[4])
                    for shape, rec in k2_timed.items()]
         + [dict(shape=[2 * TRAIN_BATCH, 1024, 256], path="rgb train step",
-                max_abs_err=var["k2_err"], **var["k2"])],
+                max_abs_err=var["k2_err"], **var["k2"]),
+           dict(shape=list(PARALLEL_ATTN_SHAPE),
+                path="sharded train step, per rank", max_abs_err=par["k2_err"],
+                **dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by"), par["k2"])))],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1797,40 +1841,45 @@ def check_k2(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = max(check_k2_case(gen, shape, dtype)
                   for shape, dtype in BWD_CASES)
-    timed = {}
-    for b, n, d in K2_TIMED:
-        t, p, g, do = k2_operands(gen, (b, n, d), torch.bfloat16)
-        with torch.no_grad():
-            out, lse = _launch_fwd(t, p, g, with_lse=True)
-        # yardstick only: the port never calls it.  The backward of flash
-        # SDPA on [B, 1, N, D] with scale 1, the forward kept out of the
-        # timing; the gradients returned fresh, as K2's are, not
-        # accumulated into .grad
-        q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-        do4 = do[:, None].contiguous()
-        turns = alternate_ms({
-            "kernel": lambda: nonlocal_attention_bwd(t, p, g, out, lse, do),
-            "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                                 retain_graph=True)})
-        with torch.no_grad():
-            plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
-                t, p, g, do))
-        k2_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
-        bound_ms, bound_by = attention_bwd_bound_ms(b, n, d, torch.bfloat16)
-        timed[(b, n, d)] = (k2_ms, plain_ms, sdpa_ms, bound_ms, bound_by)
-        tflops = 10.0 * b * n * n * d / k2_ms / 1e9
-        print(f"({b},{n},{d}) bf16: kernel {k2_ms:.4f} ms ({tflops:.0f} "
-              f"TFLOP/s, {100 * bound_ms / k2_ms:.1f}% of the bound "
-              f"{bound_ms:.4f} ms, {bound_by}), plain backward "
-              f"{plain_ms:.4f} ms, flash sdpa backward {sdpa_ms:.4f} ms; "
-              f"kernel / flash {k2_ms / sdpa_ms:.2f} (medians; by turn "
-              f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
-              f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])})",
-              flush=True)
-        del q4, k4, v4, o4, do4
+    timed = {shape: time_k2(gen, shape) for shape in K2_TIMED}
     return max_err, timed
+
+
+def time_k2(gen, shape) -> tuple:
+    """K2 (bf16) timed in turns with flash SDPA's backward at the same
+    head dim, and the plain backward; prints them with the bound.  Returns
+    (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    b, n, d = shape
+    t, p, g, do = k2_operands(gen, (b, n, d), torch.bfloat16)
+    with torch.no_grad():
+        out, lse = _launch_fwd(t, p, g, with_lse=True)
+    # yardstick only: the port never calls it.  The backward of flash
+    # SDPA on [B, 1, N, D] with scale 1, the forward kept out of the
+    # timing; the gradients returned fresh, as K2's are, not
+    # accumulated into .grad
+    q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    do4 = do[:, None].contiguous()
+    turns = alternate_ms({
+        "kernel": lambda: nonlocal_attention_bwd(t, p, g, out, lse, do),
+        "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                             retain_graph=True)})
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
+            t, p, g, do))
+    k2_ms, sdpa_ms = (float(np.median(turns[k])) for k in turns)
+    bound_ms, bound_by = attention_bwd_bound_ms(b, n, d, torch.bfloat16)
+    tflops = 10.0 * b * n * n * d / k2_ms / 1e9
+    print(f"({b},{n},{d}) bf16: kernel {k2_ms:.4f} ms ({tflops:.0f} "
+          f"TFLOP/s, {100 * bound_ms / k2_ms:.1f}% of the bound "
+          f"{bound_ms:.4f} ms, {bound_by}), plain backward "
+          f"{plain_ms:.4f} ms, flash sdpa backward {sdpa_ms:.4f} ms; "
+          f"kernel / flash {k2_ms / sdpa_ms:.2f} (medians; by turn "
+          f"kernel {', '.join(f'{x:.4f}' for x in turns['kernel'])}, "
+          f"flash {', '.join(f'{x:.4f}' for x in turns['flash'])})",
+          flush=True)
+    return k2_ms, plain_ms, sdpa_ms, bound_ms, bound_by
 
 
 def synthetic_train_batch(views: int, size: int, device, seed: int = 0):
@@ -3533,5 +3582,415 @@ def cli_path(dev, smi: str, work: str, bench_faces: float) -> dict:
     return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err}
 
 
+# the parallel path (phase 16): the train step sharded over ranks.  The
+# card's machine has one GPU and NCCL refuses two ranks on one device, so
+# one NCCL rank drives the full-width sharded step through torch.distributed
+# in this process, and two gloo ranks (gloo all-reduces CUDA tensors; every
+# all-reduce of the step is f32) share the card in processes of their own
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+PARALLEL_VIEWS = 2 * TRAIN_BATCH             # 64 views, 32 a gloo rank
+PARALLEL_ATTN_SHAPE = (TRAIN_BATCH, 1024, 128)
+PARALLEL_TIMEOUT_S = 600
+# tests/test_sharding.py:203-220's bars: the JAX step sharded against one
+# device
+PARALLEL_LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
+PARALLEL_STATE_TOL = dict(rtol=5e-4, atol=2e-4)
+VIDEO_FRAMES = 10                            # one group, 5 frames a rank
+SHARE_ATOL = 1e-5                            # tests/test_sharding.py:86
+MESH_SERVICE_REQUESTS = 13                   # a full batch of 8, a tail of 5
+MESH_SERVICE_BATCH = 8
+MESH_SERVICE_ATOL = 2e-5                     # tests/test_sharding.py:120
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def flat_state(state) -> torch.Tensor:
+    """Every parameter and BatchNorm statistic of G and D, in one f32
+    vector."""
+    return torch.cat([v.detach().reshape(-1).float()
+                      for m in (state.gen, state.disc)
+                      for v in m.state_dict().values()])
+
+
+def same_on_every_rank(x: torch.Tensor) -> bool:
+    """Whether `x` is bitwise rank 0's on every rank (a broadcast, then
+    one verdict for all)."""
+    ref = x.clone()
+    dist.broadcast(ref, src=0)
+    same = torch.tensor([float(torch.equal(ref, x))], device=x.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+@contextlib.contextmanager
+def timed_all_reduces():
+    """Counts every torch.distributed.all_reduce inside (the step's, their
+    backward's included), with the bytes, each synchronized before and
+    after on the host clock.  Yields {calls, bytes, ms}."""
+    rec = {"calls": 0, "bytes": 0, "ms": 0.0}
+    original = dist.all_reduce
+
+    def all_reduce(tensor, *args, **kw):
+        rec["calls"] += 1
+        rec["bytes"] += tensor.numel() * tensor.element_size()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return original(tensor, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            rec["ms"] += 1e3 * (time.perf_counter() - t0)
+
+    dist.all_reduce = all_reduce
+    try:
+        yield rec
+    finally:
+        dist.all_reduce = original
+
+
+def sharded_full_width(dev, rank: int, ranks: int) -> dict:
+    """PARALLEL_STEPS GSC train steps at 256 px, n_res=6, bf16, random VGG,
+    PARALLEL_VIEWS views split over `ranks` (this rank's rows of the same
+    seeded batch), inside `with mesh:`; after each step, the losses and
+    every parameter and statistic bitwise rank 0's.  Then one step with
+    every all-reduce timed.  Returns the record."""
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("train", batch_size=PARALLEL_VIEWS // 2,
+                     compute_dtype="bfloat16", vgg_dtype="bfloat16")
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(seed=0)
+    views = PARALLEL_VIEWS // ranks
+    batch = {k: v[rank * views:(rank + 1) * views].contiguous() for k, v in
+             synthetic_train_batch(PARALLEL_VIEWS, cfg.img_size,
+                                   dev).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mesh = distributed.global_mesh((ranks, 1), device=dev)
+    rec = {"step_ms": [], "equal": [], "losses": None}
+    torch.cuda.reset_peak_memory_stats()
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    with mesh:
+        for _ in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses, _ = trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            vals = torch.stack([losses[k] for k in LOSS_NAMES])
+            rec["equal"].append(same_on_every_rank(vals)
+                                and same_on_every_rank(flat_state(state)))
+            rec["losses"] = vals.tolist()
+        rec["launches"] = (nonlocal_attention.launches,
+                           nonlocal_attention_bwd.launches)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with timed_all_reduces() as ar:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            rec["timed_step_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["all_reduce"] = ar
+    return rec
+
+
+def rank_f32_step(dev, rank: int) -> dict:
+    """Phase 9's f32 step (64 px, n_res=2, 8 views, TF32 off) with its own
+    randomness, sharded over the ranks; rank 0 also runs it in one process
+    on the whole batch from the same state and generator seed and holds
+    the two to PARALLEL_LOSS_TOL and PARALLEL_STATE_TOL."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("train", **CHECK_CFG)
+    views = 2 * cfg.batch_size
+    batch = synthetic_train_batch(views, cfg.img_size, dev, seed=1)
+    per = views // PARALLEL_RANKS
+    mesh = distributed.global_mesh((PARALLEL_RANKS, 1), device=dev)
+
+    def step(b, sharded: bool):
+        trainer = Trainer(cfg, device=dev)
+        state = trainer.init_state(seed=0)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with mesh if sharded else contextlib.nullcontext():
+            state, losses, _ = trainer.train_step(state, b, gen)
+        return state, {k: float(v) for k, v in losses.items()}
+
+    nonlocal_attention.launches = 0
+    nonlocal_attention_bwd.launches = 0
+    state, losses = step({k: v[rank * per:(rank + 1) * per]
+                          for k, v in batch.items()}, True)
+    rec = {"launches": (nonlocal_attention.launches,
+                        nonlocal_attention_bwd.launches),
+           "equal": same_on_every_rank(flat_state(state))
+           and same_on_every_rank(torch.tensor(
+               [losses[k] for k in LOSS_NAMES], device=dev))}
+    if rank == 0:
+        one_state, one_losses = step(batch, False)
+        rec["loss_rel"] = max(abs(losses[k] - one_losses[k])
+                              / max(abs(one_losses[k]), 1e-6)
+                              for k in LOSS_NAMES)
+        rec["loss_ok"] = all(np.isclose(losses[k], one_losses[k],
+                                        **PARALLEL_LOSS_TOL)
+                             for k in LOSS_NAMES)
+        worst, bad = 0.0, []
+        for net in ("gen", "disc"):
+            want = getattr(one_state, net).state_dict()
+            for name, v in getattr(state, net).state_dict().items():
+                a, b = v.float(), want[name].float()
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.allclose(a, b, **PARALLEL_STATE_TOL):
+                    bad.append(f"{net}.{name}")
+        rec.update(state_max_abs=worst, state_bad=bad)
+    return rec
+
+
+def rank_tsm_video(dev, rank: int) -> dict:
+    """The TSM forward of one VIDEO_FRAMES-frame group at 256 px, f32 (TF32
+    off), the TF-golden weights: this rank's frames through
+    TSMGenerator(axis_name="frame") inside a (1, ranks) mesh, against the
+    local-mode forward of the whole group on the card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = golden_weights("tsm")
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.uniform(
+        0.05, 0.95, (VIDEO_FRAMES, 256, 256, 3)).astype(np.float32)).to(dev)
+    uv = torch.from_numpy(np.broadcast_to(
+        generate_uv_map(LM_REF, 256), (VIDEO_FRAMES, 256, 256, 3)).astype(
+        np.float32)).to(dev)
+    reg = torch.from_numpy(rng.uniform(
+        -0.02, 0.02, (VIDEO_FRAMES, 256, 256, 6)).astype(np.float32)).to(dev)
+    per = VIDEO_FRAMES // PARALLEL_RANKS
+    mine = slice(rank * per, (rank + 1) * per)
+    coll = TSMGenerator(n_res=6, axis_name="frame")
+    coll.load_state_dict(sd)
+    coll = coll.eval().to(dev)
+    local = build_generator(get_config(variant="tsm",
+                                       compute_dtype="float32"), sd, dev)
+    mesh = distributed.global_mesh((1, PARALLEL_RANKS), device=dev)
+    with torch.no_grad():
+        nonlocal_attention.launches = 0
+        with mesh:
+            outs = coll(img[mine], uv[mine], reg[mine], frame=per)
+        launches = nonlocal_attention.launches
+        refs = local(img, uv, reg, frame=VIDEO_FRAMES)
+    err = max(float((o - r[mine]).abs().max()) for o, r in zip(outs, refs))
+    return {"max_abs_err": err, "launches": launches,
+            "finite": all(bool(torch.isfinite(o).all()) for o in outs)}
+
+
+def parallel_rank(addr: str, rank: str, work: str) -> int:
+    """One gloo rank of phase 16 (`python3 chip_smoke.py --parallel-rank
+    ADDR RANK WORK`): the full-width sharded step, the f32 step against the
+    one-process step and the TSM video forward with the collective
+    ShareLayer, every (wrapper, shape, dtype) of K1 and K2 that they launch
+    recorded; the record goes to WORK/rank<RANK>.json."""
+    rank = int(rank)
+    dev = torch.device("cuda", 0)
+    missing = [n for n in _build.SOURCES
+               if not _build.library_path(n).is_file()]
+    if missing:
+        print(f"rank {rank}: kernels not built before the ranks: {missing}",
+              file=sys.stderr)
+        return 1
+    distributed.initialize(addr, PARALLEL_RANKS, rank, backend="gloo",
+                           device=dev)
+    rec = {}
+    seen, stop_recording = record_attention_shapes()
+    try:
+        rec["train"] = sharded_full_width(dev, rank, PARALLEL_RANKS)
+        torch.cuda.empty_cache()
+        rec["f32"] = rank_f32_step(dev, rank)
+        rec["video"] = rank_tsm_video(dev, rank)
+        dist.barrier()
+    finally:
+        stop_recording()
+        rec["shapes"] = [[name, list(shape), str(dtype)]
+                         for name, shape, dtype in sorted(seen, key=str)]
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel_path(dev, smi: str, work: str) -> dict:
+    """Phase 16: the service over a mesh of two entries on the card, one
+    NCCL rank driving the full-width sharded step, then PARALLEL_RANKS gloo
+    ranks in processes of their own (`parallel_rank`), every one joined
+    before this returns; then K1 and K2 at every shape that these runs
+    gave them against their plain versions, and timed at the per-rank
+    shape."""
+    t_phase = time.perf_counter()
+    launches = {}
+    seen, stop_recording = record_attention_shapes()
+
+    # --- the service over a mesh of two entries on the card, f32, TF32 off
+    with no_tf32():
+        sd = golden_weights()
+        cfg = get_config(compute_dtype="float32")
+        images, lms = synthetic_requests(MESH_SERVICE_REQUESTS, seed=3)
+        one = ShadowRemovalService(cfg, sd, batch_size=MESH_SERVICE_BATCH,
+                                   device=dev)
+        two = ShadowRemovalService(
+            cfg, sd, batch_size=MESH_SERVICE_BATCH,
+            mesh=make_mesh((2,), ("data",), devices=[dev, dev]))
+        ref = one.remove_shadows(images, lms)
+        nonlocal_attention.launches = 0
+        out = two.remove_shadows(images, lms)
+        launches["mesh service"] = nonlocal_attention.launches
+    err = max(float(np.abs(o[k] - r[k]).max()) for o, r in zip(out, ref)
+              for k in ("pred", "mask_pred"))
+    print(f"service over a (2,) mesh on one card, {MESH_SERVICE_REQUESTS} "
+          f"requests at batch {MESH_SERVICE_BATCH}, f32: max |diff| against "
+          f"the one-device service {err:.3e} (limit {MESH_SERVICE_ATOL:g}); "
+          f"K1 launches {launches['mesh service']}", flush=True)
+    want = ATTN_CALLS_PER_FORWARD * 2 * -(-MESH_SERVICE_REQUESTS
+                                          // MESH_SERVICE_BATCH)
+    if len(out) != MESH_SERVICE_REQUESTS or not err <= MESH_SERVICE_ATOL:
+        raise SystemExit("the service over a mesh disagrees")
+    if launches["mesh service"] != want:
+        raise SystemExit(f"the mesh service launched K1 "
+                         f"{launches['mesh service']} times, expected {want}")
+    del one, two, out, ref
+    torch.cuda.empty_cache()
+
+    # --- one NCCL rank: the full-width sharded step through NCCL
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        nccl = sharded_full_width(torch.device("cuda", 0), 0, 1)
+    finally:
+        dist.destroy_process_group()
+        stop_recording()
+    torch.cuda.empty_cache()
+    launches["nccl train"] = nccl["launches"]
+    ar = nccl["all_reduce"]
+    print(f"one NCCL rank, {PARALLEL_VIEWS} views of 256 px a step, bf16: "
+          f"steps {', '.join(f'{t:.1f}' for t in nccl['step_ms'])} ms, peak "
+          f"{nccl['peak_gib']:.2f} GiB; {ar['calls']} all-reduces a step "
+          f"through NCCL, {ar['bytes'] / 2**20:.1f} MiB; with each "
+          f"synchronized: {nccl['timed_step_ms']:.1f} ms, of which "
+          f"all-reduces {ar['ms']:.1f} ms; K1, K2 launches "
+          f"{nccl['launches']} ({smi})", flush=True)
+    want = (ATTN_CALLS_PER_FORWARD * PARALLEL_STEPS,) * 2
+    if (tuple(nccl["launches"]) != want or not all(nccl["equal"])
+            or not np.isfinite(nccl["losses"]).all() or ar["calls"] < 1):
+        raise SystemExit("the NCCL rank's sharded step failed")
+
+    # --- PARALLEL_RANKS gloo ranks on the card, each a process
+    addr = f"127.0.0.1:{free_port()}"
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(PARALLEL_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+         addr, str(r), work], cwd=ROOT, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PARALLEL_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    recs = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            log = f.read()
+        path = os.path.join(work, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            print(log[-4000:], flush=True)
+            raise SystemExit(f"gloo rank {r} failed (exit {p.returncode})")
+        with open(path) as f:
+            recs.append(json.load(f))
+    print(f"{PARALLEL_RANKS} gloo ranks joined after {ranks_s:.1f} s, every "
+          f"process exited", flush=True)
+    ok = True
+    for r, rec in enumerate(recs):
+        tr, f32, video = rec["train"], rec["f32"], rec["video"]
+        ar = tr["all_reduce"]
+        launches[f"gloo train rank {r}"] = tr["launches"]
+        launches[f"gloo f32 step rank {r}"] = f32["launches"]
+        launches[f"video rank {r}"] = video["launches"]
+        print(f"rank {r}: {PARALLEL_VIEWS // PARALLEL_RANKS} views a step, "
+              f"steps {', '.join(f'{t:.1f}' for t in tr['step_ms'])} ms, "
+              f"peak {tr['peak_gib']:.2f} GiB, bitwise equal across ranks "
+              f"after each step {tr['equal']}; with every all-reduce "
+              f"synchronized {tr['timed_step_ms']:.1f} ms, all-reduces "
+              f"{ar['ms']:.1f} ms ({100 * ar['ms'] / tr['timed_step_ms']:.1f}"
+              f"%, {ar['calls']} calls, {ar['bytes'] / 2**20:.1f} MiB); "
+              f"K1, K2 launches {tr['launches']} ({smi}; two ranks share "
+              f"one card: a record, no scaling figure)", flush=True)
+        print(f"rank {r}: f32 step (phase 9's size) bitwise equal across "
+              f"ranks {f32['equal']}"
+              + (f"; against the one-process step: worst relative loss "
+                 f"difference {f32['loss_rel']:.3e} (bars rtol/atol 2e-4: "
+                 f"{'ok' if f32['loss_ok'] else 'FAIL'}), worst |state "
+                 f"diff| {f32['state_max_abs']:.3e} (rtol 5e-4, atol 2e-4; "
+                 f"{len(f32['state_bad'])} tensors outside: "
+                 f"{f32['state_bad'][:5]})" if r == 0 else "")
+              + f"; K1, K2 launches {f32['launches']}", flush=True)
+        print(f"rank {r}: TSM video, {VIDEO_FRAMES // PARALLEL_RANKS} of "
+              f"{VIDEO_FRAMES} frames, collective ShareLayer vs local mode: "
+              f"max abs err {video['max_abs_err']:.3e} (limit "
+              f"{SHARE_ATOL:g}); K1 launches {video['launches']}", flush=True)
+        ok = ok and all(tr["equal"]) and f32["equal"] and video["finite"] \
+            and video["max_abs_err"] <= SHARE_ATOL \
+            and np.isfinite(tr["losses"]).all() \
+            and tuple(tr["launches"]) == want \
+            and tuple(f32["launches"]) == (CHECK_CFG["n_res"],) * 2 \
+            and video["launches"] == ATTN_CALLS_PER_FORWARD
+        if r == 0:
+            ok = ok and f32["loss_ok"] and not f32["state_bad"]
+    if not ok:
+        raise SystemExit("phase 16: a sharded check failed")
+    if recs[0]["train"]["losses"] != recs[1]["train"]["losses"]:
+        raise SystemExit("phase 16: the ranks' losses differ")
+
+    # --- K1 and K2 at every shape the service, the NCCL rank and the gloo
+    # ranks gave them, against their plain versions (launches not counted)
+    dtypes = {str(d): d for d in (torch.float32, torch.bfloat16)}
+    for rec in recs:
+        seen |= {(name, tuple(shape), dtypes[dtype])
+                 for name, shape, dtype in rec["shapes"]}
+    for name in ("nonlocal_attention", "nonlocal_attention_bwd"):
+        if (name, PARALLEL_ATTN_SHAPE, torch.bfloat16) not in seen:
+            raise SystemExit(f"phase 16: the sharded step launched no {name}"
+                             f" at {PARALLEL_ATTN_SHAPE} bf16")
+    print("K1 and K2 at the shapes phase 16's runs gave them, against their "
+          "plain versions:", flush=True)
+    check_gen = torch.Generator(device=dev).manual_seed(16)
+    k1_err = k2_err = 0.0
+    for name, shape, dtype in sorted(seen, key=str):
+        if name == "nonlocal_attention":
+            k1_err = max(k1_err, check_k1(check_gen, shape, dtype))
+        else:
+            k2_err = max(k2_err, check_k2_case(check_gen, shape, dtype))
+
+    # --- K1 and K2 at the per-rank shape, timed on the card alone
+    print(f"K1 and K2 at the per-rank shape {PARALLEL_ATTN_SHAPE}, timed "
+          f"with the ranks gone ({smi}):", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k1 = time_k1(gen, PARALLEL_ATTN_SHAPE, with_lse=True)
+    k2 = time_k2(gen, PARALLEL_ATTN_SHAPE)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return {"launches": launches, "k1": k1, "k2": k2,
+            "k1_err": k1_err, "k2_err": k2_err}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(*sys.argv[2:5]))
     sys.exit(main())

@@ -160,8 +160,17 @@ def test_share_layer_keeps_the_compute_dtype():
 
 
 def test_collective_share_layer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP F1"):
-        TSMGenerator(n_res=2, axis_name="frame")
+    """(Named when the collective mode raised.)  It is ported now: the
+    generator builds both ShareLayer insertions in collective mode, with
+    the local mode's parameters, and refuses to reduce outside a mesh over
+    processes (tests/test_torch_distributed.py runs it over ranks)."""
+    gen = TSMGenerator(n_res=2, axis_name="frame")
+    assert gen.info_share.axis_name == "frame"
+    assert gen.state_dict().keys() == TSMGenerator(n_res=2).state_dict().keys()
+    x = torch.zeros(2, 32, 32, 3)
+    reg = torch.zeros(2, 32, 32, 6)
+    with pytest.raises(RuntimeError, match="with mesh:"), torch.no_grad():
+        gen.eval()(x, x, reg, frame=1)
 
 
 def _golden_inputs(variant):
