@@ -6,10 +6,9 @@ Port of `blindshadowremoval_tpu/config.py`, with every field of it.  The
 mesh fields are accepted as the JAX package accepts them and, as there,
 read by no code: a mesh takes its shape from the caller
 (`parallel/mesh.py:make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)`, or
-`distributed.py:global_mesh`), which checks it against the devices.  The
-option whose code path is not ported (the space-to-depth convs, ROADMAP
-F4) raises `NotImplementedError` naming the item, so a caller never
-silently gets another configuration than it asked for.
+`distributed.py:global_mesh`), which checks it against the devices.
+`s2d_convs` runs every generator's conv1 and 7x7 head as space-to-depth
+convs (models/blocks.py), as in the JAX package; it is off by default.
 """
 
 from __future__ import annotations
@@ -119,8 +118,8 @@ class Config:
     mesh_axis_names: tuple = ("data", "frame")
     param_dtype: str = "float32"       # the parameters' dtype; the only one
                                        # either package makes them in
-    # not ported: must stay at its default
-    s2d_convs: bool = False            # ROADMAP F4
+    s2d_convs: bool = False            # conv1 and the 7x7 head(s) as
+                                       # space-to-depth convs
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -146,8 +145,6 @@ class Config:
         if self.variant == "tsm" and self.int8_head_split:
             raise ValueError("int8_head_split is a gsc option (the JAX "
                              "package's TSM generator has no split head)")
-        if self.s2d_convs:
-            raise NotImplementedError("s2d_convs is not ported (ROADMAP F4)")
         for name in ("compute_dtype", "egress_dtype", "vgg_dtype"):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"{name}={getattr(self, name)!r}; choose "

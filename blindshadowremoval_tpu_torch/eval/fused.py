@@ -46,6 +46,11 @@ from blindshadowremoval_tpu_torch.ops.components import (
 from blindshadowremoval_tpu_torch.ops.image import dequantize
 from blindshadowremoval_tpu_torch.ops.image import psnr as psnr_fn
 from blindshadowremoval_tpu_torch.ops.image import ssim as ssim_fn
+from blindshadowremoval_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    gather,
+    shard_batch,
+)
 
 
 def dynamic_resize_matrix(size, n: int = 256) -> torch.Tensor:
@@ -316,7 +321,8 @@ def _make_ucb_step(forward_fn, params: PostprocessParams, img_size: int,
 
 
 def build_fused_ucb_batch_step(forward_fn, params: PostprocessParams,
-                               img_size: int = 256, protocol: str = "gsc"):
+                               img_size: int = 256, protocol: str = "gsc",
+                               mesh=None):
     """fn(batch, size, pi, report=None) -> (detected, composite uint8,
     shadow map uint8, psnr, ssim), each with a leading image axis [k]: one
     device pass for k images (batch leaves [k,V,S,S,C], size [k], PartInputs
@@ -325,8 +331,49 @@ def build_fused_ucb_batch_step(forward_fn, params: PostprocessParams,
 
     protocol="tsm" runs the structurally different TSM pipeline
     (train_with_TSM.py:420-617): heuristics at full resolution against the
-    unresized part masks, composite before the resize into the box."""
-    return _make_ucb_step(forward_fn, params, img_size, protocol)
+    unresized part masks, composite before the resize into the box.
+
+    `mesh` (parallel/mesh.py): the k images are split over its "data"
+    axis, k/n a device (a k the n devices do not divide raises
+    ValueError), and `forward_fn` is then a sequence of forwards, the i-th
+    on the i-th device of `batch_sharding(mesh)` (each over its own
+    replica of the generator, the weights replicated, as
+    __graft_entry__.py:209-262 shards the JAX step).  Each device runs its
+    shard of the batch, the sizes and the PartInputs through the step; the
+    outputs come back in image order on the device of the caller's
+    batch.  `report["label_iterations"]` is the largest over the shards:
+    the one-device loop runs until its slowest image converges, and an
+    iteration at a fixed point changes no label."""
+    if mesh is None:
+        return _make_ucb_step(forward_fn, params, img_size, protocol)
+    sharding = batch_sharding(mesh)
+    forwards = list(forward_fn)
+    if len(forwards) != sharding.num_shards:
+        raise ValueError(f"{len(forwards)} forwards for the "
+                         f"{sharding.num_shards} shards of the mesh")
+    steps = [_make_ucb_step(f, params, img_size, protocol)
+             for f in forwards]
+
+    def sharded(batch: dict, size: torch.Tensor, pi: PartInputs,
+                report: dict | None = None):
+        home = batch["img"].device
+        leaves = {key: shard_batch(t, sharding) for key, t in batch.items()}
+        sizes = shard_batch(size, sharding)
+        pis = {f.name: shard_batch(getattr(pi, f.name), sharding)
+               for f in dataclasses.fields(PartInputs)}
+        outs, iterations = [], []
+        for i, shard_step in enumerate(steps):
+            rep: dict = {}
+            outs.append(shard_step(
+                {key: parts[i] for key, parts in leaves.items()}, sizes[i],
+                PartInputs(**{name: parts[i] for name, parts in pis.items()}),
+                rep))
+            iterations.append(rep["label_iterations"])
+        if report is not None:
+            report["label_iterations"] = max(iterations)
+        return tuple(gather(list(o), home) for o in zip(*outs))
+
+    return sharded
 
 
 def build_fused_ucb_step(forward_fn, params: PostprocessParams,

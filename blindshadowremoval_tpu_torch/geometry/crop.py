@@ -8,7 +8,9 @@ half the larger landmark extent.  Landmarks are returned normalized by the
 box side (2L).  With `aug=True` (the train parser) the image may first be
 rotated by up to 10 degrees about its centre, and the box is jittered in
 place and scale; the draws come from the caller's numpy Generator in the
-JAX package's order, so one seed gives both packages the same crop.
+JAX package's order, so one seed gives both packages the same crop.  The
+crop and resize run in `utils/native.py`'s g++ library, as in the JAX
+package.
 """
 
 from __future__ import annotations

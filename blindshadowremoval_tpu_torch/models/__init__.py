@@ -27,10 +27,12 @@ def _glorot_init(model: torch.nn.Module, seed: int) -> None:
 
 def new_generator(config: Config) -> torch.nn.Module:
     """An untrained generator of `config.variant` (f32 parameters, on the
-    CPU), computing in the config's compute dtype; gsc and tsm with the
-    config's int8 head (trainer.py:build_generator in the JAX package)."""
+    CPU), computing in the config's compute dtype, with its space-to-depth
+    convs when `s2d_convs` is set; gsc and tsm with the config's int8 head
+    (trainer.py:build_generator in the JAX package)."""
     kw = dict(n_res=config.n_res, egress_dtype=config.torch_egress_dtype,
-              dtype=config.torch_compute_dtype, remat=config.remat)
+              dtype=config.torch_compute_dtype, remat=config.remat,
+              s2d_convs=config.s2d_convs)
     if config.variant != "rgb":
         kw.update(int8_head=config.int8_head,
                   int8_head_scale=config.int8_head_scale)

@@ -33,7 +33,7 @@ class Discriminator(nn.Module):
         self.convs = nn.ModuleList(
             ConvBlock(chans[i], chans[i + 1], ksize=4, stride=2)
             for i in range(num_layers))
-        self.head = ConvBlock(chans[-1], 1, ksize=4, norm=False, act=False)
+        self.head = ConvBlock(chans[-1], 1, ksize=4, norm=None, act=False)
 
     def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2).to(self.dtype)

@@ -62,13 +62,15 @@ class GSCGenerator(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False,
                  int8_head: bool = False,
                  int8_head_scale: float | tuple = 0.0,
-                 int8_head_split: bool = False):
+                 int8_head_split: bool = False, s2d_convs: bool = False):
         super().__init__()
         self.egress_dtype = egress_dtype
         self.dtype = dtype
         self.remat = remat
         fb = dict(fold_bn=fold_bn)
-        self.conv1 = ConvBlock(3, N_CH[0], ksize=7, **fb)
+        # s2d_convs: conv1 and the 7x7 head as space-to-depth convs
+        # (generator.py:77,105 in the JAX package)
+        self.conv1 = ConvBlock(3, N_CH[0], ksize=7, s2d=s2d_convs, **fb)
         self.down1 = ConvBlock(N_CH[0], N_CH[1], stride=2, **fb)
         self.down2 = ConvBlock(N_CH[1], N_CH[2], stride=2, **fb)
         self.down3 = ConvBlock(N_CH[2], N_CH[3], stride=2, **fb)
@@ -95,15 +97,15 @@ class GSCGenerator(nn.Module):
         # head puts only channel 1, the offset `con`, on int8, and keeps
         # the tanh gain that feeds the dif > 0.1 mask exact
         self.head = ConvBlock(
-            N_CH[1], 2, ksize=7, norm=False, act=False,
+            N_CH[1], 2, ksize=7, norm=None, act=False,
             int8=int8_head or int8_head_split, int8_scale=int8_head_scale,
-            int8_channels=(1,) if int8_head_split else None)
+            int8_channels=(1,) if int8_head_split else None, s2d=s2d_convs)
         self.clr_up1 = ConvTBlock(rgb_out, N_CH[4], **fb)
         self.clr_up2 = ConvTBlock(N_CH[4], N_CH[3], **fb)
         self.clr_up3 = ConvTBlock(N_CH[3], N_CH[2], **fb)
         self.clr_conv1 = ConvBlock(1 + N_CH[2], 16, ksize=3, **fb)
         self.clr_conv2 = ConvBlock(16, 16, ksize=1, **fb)
-        self.clr_conv3 = ConvBlock(16, 3, ksize=1, norm=False, act=False)
+        self.clr_conv3 = ConvBlock(16, 3, ksize=1, norm=None, act=False)
         self.n_res = n_res
 
     def forward(self, inputs: torch.Tensor, uv: torch.Tensor,

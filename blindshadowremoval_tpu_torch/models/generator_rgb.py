@@ -36,13 +36,16 @@ class RGBGenerator(nn.Module):
 
     def __init__(self, n_res: int = 6, fold_bn: bool = False,
                  egress_dtype: torch.dtype = torch.float32,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 s2d_convs: bool = False):
         super().__init__()
         self.egress_dtype = egress_dtype
         self.dtype = dtype
         self.remat = remat
         fb = dict(fold_bn=fold_bn)
-        self.conv1 = ConvBlock(3, N_CH[0], ksize=7, **fb)
+        # s2d_convs: conv1 and both 7x7 output convs as space-to-depth
+        # convs (generator_rgb.py:39,59-61 in the JAX package)
+        self.conv1 = ConvBlock(3, N_CH[0], ksize=7, s2d=s2d_convs, **fb)
         self.down1 = ConvBlock(N_CH[0], N_CH[1], stride=2, **fb)
         self.down2 = ConvBlock(N_CH[1], N_CH[2], stride=2, **fb)
         self.down3 = ConvBlock(N_CH[2], N_CH[3], stride=2, **fb)
@@ -52,8 +55,10 @@ class RGBGenerator(nn.Module):
         self.up1 = ConvTBlock(RGB_RES_CH, 2 * N_CH[3], **fb)
         self.up2 = ConvTBlock(2 * N_CH[3] + N_CH[2], 2 * N_CH[2], **fb)
         self.up3 = ConvTBlock(2 * N_CH[2] + N_CH[1], 2 * N_CH[1], **fb)
-        self.conv2 = ConvBlock(2 * N_CH[1], 3, ksize=7, norm=False, act=False)
-        self.conv3 = ConvBlock(3, 3, ksize=7, norm=False, act=False)
+        self.conv2 = ConvBlock(2 * N_CH[1], 3, ksize=7, norm=None, act=False,
+                               s2d=s2d_convs)
+        self.conv3 = ConvBlock(3, 3, ksize=7, norm=None, act=False,
+                               s2d=s2d_convs)
 
     def forward(self, inputs: torch.Tensor, uv: torch.Tensor,
                 reg: torch.Tensor | None = None) -> torch.Tensor:

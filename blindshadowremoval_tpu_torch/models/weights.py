@@ -16,9 +16,10 @@ Two sources, both plain numpy, so neither needs JAX or TensorFlow:
     and aligner (face_alignment's module names); `synthetic_sfd_weights`
     and `synthetic_fan_weights` make such flat dicts from a seed.
   * `load_tf_weights`: a `{tf_name: array}` dict in the reference's TF
-    checkpoint naming, through the name mapping of a generator variant (a
-    port of `blindshadowremoval_tpu/models/tf_checkpoint.py:
-    generator_mapping`).
+    checkpoint naming, through the name mapping of a generator variant or
+    of the discriminator trio (ports of `blindshadowremoval_tpu/models/
+    tf_checkpoint.py:generator_mapping` and `discriminator_mapping`);
+    `models/tf_checkpoint.py` reads such a dict from a TF checkpoint.
     `synthetic_tf_weights` makes such a dict deterministically from a seed,
     value for value as the JAX package's function does, so the TF-reference
     goldens in tests/goldens/tf_ref/ can be reproduced without JAX.
@@ -72,12 +73,25 @@ _BLOCK_NAMES = {"conv": _CONV_BLOCK, "nonlocal": _NONLOCAL_BLOCK,
                 "res": _RES_BLOCK}
 
 
+def spectral_norm_from_jax(stats: dict, prefix: str = "") -> dict:
+    """A flax SpectralNorm's state (`batch_stats/SpectralNorm_0` of a
+    ConvBlock or ConvTBlock built with norm="spec": `<conv>/kernel/u`
+    [1, out] and `<conv>/kernel/sigma`) -> the block's `sn.u`, `sn.sigma`
+    (models/blocks.py:SpectralNorm); {} for a block without one."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, value in stats.get("SpectralNorm_0", {}).items():
+        leaf = key.rsplit("/", 1)[-1]          # "u" or "sigma"
+        sd[f"{prefix}sn.{leaf}"] = _t(value)
+    return sd
+
+
 def block_from_jax(params: dict, stats: dict, kind: str,
                    prefix: str = "") -> dict[str, torch.Tensor]:
     """One Flax block's variables -> its torch state_dict.  `kind` is
-    "conv" (ConvBlock / ConvTBlock), "nonlocal" or "res"."""
+    "conv" (ConvBlock / ConvTBlock, with a spectral norm's state),
+    "nonlocal" or "res"."""
     names = _BLOCK_NAMES[kind]
-    sd: dict[str, torch.Tensor] = {}
+    sd: dict[str, torch.Tensor] = spectral_norm_from_jax(stats, prefix)
     for flax_name, node in params.items():
         name = prefix + names[flax_name]
         if flax_name.startswith("BatchNorm_"):
@@ -252,6 +266,21 @@ def generator_mapping(variant: str = "gsc", n_res: int = 6):
     return entries
 
 
+def discriminator_mapping(num_layers: int = 4):
+    """[(torch_name, tf_name, None)] for the 3-scale discriminator trio
+    (tf_checkpoint.py:180-195): `discs.{d-1}.convs.{i}` is
+    `discriminator_{d}/conv_stack/{i}` and `discs.{d-1}.head` is
+    `discriminator_{d}/conv2`."""
+    entries = []
+    for d in (1, 2, 3):
+        tp, tf = f"discs.{d - 1}", f"discriminator_{d}"
+        for i in range(num_layers):
+            entries += _conv_entries(f"{tp}.convs.{i}", f"{tf}/conv_stack/{i}",
+                                     True)
+        entries += _conv_entries(f"{tp}.head", f"{tf}/conv2", False)
+    return entries
+
+
 def _tf_shape(torch_shape: tuple) -> tuple:
     """TF layout of a torch tensor shape: Conv2d [O,I,H,W] -> HWIO and
     ConvTranspose2d [I,O,H,W] -> Keras [H,W,O,I] are the same permutation."""
@@ -295,7 +324,8 @@ def synthetic_tf_weights(state_dict: dict, mapping, seed: int = 0) -> dict:
 
 
 def load_tf_weights(weights: dict, mapping) -> dict[str, torch.Tensor]:
-    """{tf_name: array} -> a state_dict of the (unfolded) port generator."""
+    """{tf_name: array} -> a state_dict of the model of `mapping`: the
+    (unfolded) port generator, or the discriminator trio."""
     sd: dict[str, torch.Tensor] = {}
     slices: dict[str, list] = {}
     for torch_name, tf_name, dst in mapping:

@@ -126,8 +126,12 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
-    """tf.image.psnr over [..., H, W, C] -> [...] (dB)."""
-    mse = ((a - b) ** 2).mean(dim=(-3, -2, -1))
+    """tf.image.psnr over [..., H, W, C] -> [...] (dB).  Each image's mean
+    accumulates in f64 and rounds once, so its value does not depend on
+    the batch it is computed in (a k-image UCB step split over a mesh gives
+    the one-device values)."""
+    sq = (a - b) ** 2
+    mse = sq.double().mean(dim=(-3, -2, -1)).to(sq.dtype)
     return 10.0 * torch.log10(max_val ** 2 / mse.clamp_min(1e-12))
 
 
@@ -162,7 +166,8 @@ def _filter2d_valid(x: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
 
 def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
     """tf.image.ssim defaults: 11x11 Gaussian sigma=1.5, k1=.01, k2=.03.
-    a, b: [..., H, W, C] -> [...] mean SSIM, computed in f32."""
+    a, b: [..., H, W, C] -> [...] mean SSIM, computed in f32 (each image's
+    mean accumulated in f64, as `psnr`'s)."""
     a = a.float()
     b = b.float()
     lead = a.shape[:-3]
@@ -186,4 +191,4 @@ def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor
 
     lum = (2 * mu_a * mu_b + c1) / (mu_a ** 2 + mu_b ** 2 + c1)
     cs = (2 * cov + c2) / (va + vb + c2)
-    return (lum * cs).mean(dim=(1, 2, 3)).reshape(lead)
+    return (lum * cs).double().mean(dim=(1, 2, 3)).float().reshape(lead)

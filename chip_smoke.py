@@ -36,8 +36,15 @@ rank; then two gloo ranks, processes of their own sharing the card, with
 the full-width sharded step bitwise equal across the ranks after each
 step, an f32 sharded step against the one-process step, the TSM video
 forward with the collective ShareLayer against the local one, and K1 and
-K2 at every shape these runs gave them against their plain versions), and,
-after phases 13 to 16, prints one JSON line with every kernel and, last,
+K2 at every shape these runs gave them against their plain versions), runs
+the rest of the port (phase 17: the committed TF bundle read without
+TensorFlow, bitwise against its synthetic values, and loaded into the
+discriminators and the golden generator; the g++ native loader, which must
+load, against numpy and timed; the fused UCB step of 8 images over a (2,)
+mesh on the card against the one-device step; bench.py's forward with
+`s2d_convs` off and on and the packed decoder tail against the direct
+one, in turns; K1 at every shape these runs gave it), and, after phases
+13 to 17, prints one JSON line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends the run with a non-zero
 exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -89,6 +96,7 @@ from blindshadowremoval_tpu_torch.eval.evaluators import (
     UCBEvaluator,
 )
 from blindshadowremoval_tpu_torch.eval.fused import (
+    PartInputs,
     build_fused_ucb_batch_step,
     dynamic_resize_matrix,
     fused_postprocess,
@@ -115,6 +123,9 @@ from blindshadowremoval_tpu_torch.models import (
     generator_rgb as generator_rgb_module,
 )
 from blindshadowremoval_tpu_torch.models.blocks import frozen_stats
+from blindshadowremoval_tpu_torch.models.discriminator import (
+    MultiScaleDiscriminators,
+)
 from blindshadowremoval_tpu_torch.models.fan import (
     LandmarkAligner,
     box_to_center_scale,
@@ -133,8 +144,16 @@ from blindshadowremoval_tpu_torch.models.sfd import (
 )
 from blindshadowremoval_tpu_torch.models.sfd import nms as sfd_nms
 from blindshadowremoval_tpu_torch.models.generator_tsm import TSMGenerator
+from blindshadowremoval_tpu_torch.models.tf_checkpoint import (
+    VAL_SUFFIX,
+    list_variables,
+    load_tf_checkpoint,
+    read_bundle,
+    verify_against_index,
+)
 from blindshadowremoval_tpu_torch.models.vgg import preprocess
 from blindshadowremoval_tpu_torch.models.weights import (
+    discriminator_mapping,
     fan_from_jax,
     generator_mapping,
     load_tf_weights,
@@ -143,7 +162,7 @@ from blindshadowremoval_tpu_torch.models.weights import (
     synthetic_sfd_weights,
     synthetic_tf_weights,
 )
-from blindshadowremoval_tpu_torch.ops import _build, quant
+from blindshadowremoval_tpu_torch.ops import _build, packed, quant
 from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     KERNEL_TOLERANCE,
@@ -171,7 +190,7 @@ from blindshadowremoval_tpu_torch.train.losses import (
     reconstruction_losses,
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
-from blindshadowremoval_tpu_torch.utils import profiling
+from blindshadowremoval_tpu_torch.utils import native, profiling
 from blindshadowremoval_tpu_torch.utils.checkpoint import CheckpointManager
 from blindshadowremoval_tpu_torch.utils.imageio import (
     imread,
@@ -804,6 +823,13 @@ def main() -> int:
     par_k2 = {k: v[1] for k, v in par["launches"].items()
               if not isinstance(v, int)}
 
+    phase("17 the rest: the TF bundle reader, the native loader, the fused "
+          "UCB step over a mesh, the s2d and packed convs")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        rest = rest_path(dev, smi, work)
+    max_err = max(max_err, rest["k1_err"])
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
@@ -817,7 +843,9 @@ def main() -> int:
                                  for k, v in clip["launches"].items())
           + "; parallel " + ", ".join(f"{k} K1 {v}" for k, v in
                                       par_k1.items())
-          + ", K2 " + ", ".join(f"{k} {v}" for k, v in par_k2.items()))
+          + ", K2 " + ", ".join(f"{k} {v}" for k, v in par_k2.items())
+          + "; the rest " + ", ".join(f"{k} K1 {v}"
+                                      for k, v in rest["launches"].items()))
     fit_k1 = sum(v[0] for v in fit.values())
     fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
@@ -833,7 +861,8 @@ def main() -> int:
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:70",
         "launches": (main_launches + fit_k1
                      + front["launches"]["run_dir overlapped"]
-                     + sum(par_k1[k] for k in par_train)),
+                     + sum(par_k1[k] for k in par_train)
+                     + sum(rest["launches"].values())),
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -851,7 +880,9 @@ def main() -> int:
                              **{f"cli {k}": v[0]
                                 for k, v in clip["launches"].items()},
                              **{f"parallel {k}": v
-                                for k, v in par_k1.items()}},
+                                for k, v in par_k1.items()},
+                             **{f"rest {k}": v
+                                for k, v in rest["launches"].items()}},
         "shapes": k1_shapes,
     }, {
         "name": "nonlocal_attn_bwd",
@@ -3988,6 +4019,372 @@ def parallel_path(dev, smi: str, work: str) -> dict:
           flush=True)
     return {"launches": launches, "k1": k1, "k2": k2,
             "k1_err": k1_err, "k2_err": k2_err}
+
+
+# the rest of the port (phase 17): the TF bundle reader on the committed
+# fixture, the native loader, the fused UCB step over a mesh, and the
+# opt-in space-to-depth and packed convs, timed
+TF_BUNDLE = ROOT / "tests" / "goldens" / "tf_bundle" / "ckpt-1"
+BUNDLE_GEN_LAYERS = ("generator/conv1/", "generator/conv2/",
+                     "generator/conv3/", "generator/up3/")
+NATIVE_CROPS = 32
+NATIVE_ATOL = 1e-5                  # tests/test_native.py:33-38
+MESH_UCB_IMAGES = 8
+PACKED_CIN, PACKED_CMID = 128, 64   # tools/bench_packed_tail.py's segment
+PACKED_ATOL = 1e-3                  # its f32 check
+S2D_BAR_DB = 40.0                   # bench.py's bf16 production bar
+
+
+def bundle_reader(dev) -> tuple[dict, int]:
+    """The committed TF bundle read without TensorFlow, bitwise against
+    synthetic_tf_weights; the discriminator trio and the generator's
+    covered layers loaded from it, the latter into the TF-golden generator,
+    whose f32 forward on the card must meet phase 4's bar.  Returns ({label:
+    verify_against_index counts}, K1 launches of the bundle forward)."""
+    gen_map = [e for e in generator_mapping("gsc", 6)
+               if e[1].startswith(BUNDLE_GEN_LAYERS)]
+    disc_sd = MultiScaleDiscriminators().state_dict()
+    want = synthetic_tf_weights(disc_sd, discriminator_mapping(), 0)
+    want.update(synthetic_tf_weights(GENERATORS["gsc"](6).state_dict(),
+                                     gen_map, 0))
+    prefix = str(TF_BUNDLE)
+    t0 = time.perf_counter()
+    got = read_bundle(prefix)
+    read_s = time.perf_counter() - t0
+    bad = [n for n, v in want.items()
+           if not np.array_equal(got.get(n + VAL_SUFFIX), v)]
+    if bad or len(got) != len(want) + 1:     # + save_counter
+        raise SystemExit(f"the TF bundle reader: {len(bad)} tensors differ "
+                         f"from synthetic_tf_weights ({bad[:3]})")
+    counts = {}
+    for label, sd, mapping in (
+            ("discriminators", disc_sd, discriminator_mapping()),
+            ("generator", GENERATORS["gsc"](6).state_dict(),
+             generator_mapping("gsc", 6))):
+        r = verify_against_index(prefix, sd, mapping)
+        counts[label] = {k: v if isinstance(v, int) else len(v)
+                         for k, v in r.items()}
+    print(f"TF bundle (no TensorFlow): {len(list_variables(prefix))} "
+          f"entries, {len(got)} numeric tensors read in {read_s:.3f} s, "
+          f"bitwise equal to synthetic_tf_weights; verify_against_index: "
+          + "; ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if (counts["discriminators"]["matched"] != len(discriminator_mapping())
+            or counts["generator"]["matched"] != len(gen_map)
+            or any(c["shape_mismatch"] for c in counts.values())):
+        raise SystemExit("the TF bundle does not verify against the models")
+    # the trio from the bundle, on the card: the loaded model runs
+    discs = MultiScaleDiscriminators().to(dev).eval()
+    discs.load_state_dict(load_tf_checkpoint(prefix, discriminator_mapping()))
+    x = torch.rand(2, 256, 256, 6, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode(), no_tf32():
+        logits = discs(x.to(dev))
+    if not all(torch.isfinite(t).all() for pair in logits for t in pair):
+        raise SystemExit("the bundle's discriminators gave non-finite logits")
+    # the generator's covered layers from the bundle, bitwise the golden
+    # weights' own, in the TF-golden generator: phase 4's f32 bar
+    sd = golden_weights()
+    loaded = load_tf_checkpoint(prefix, gen_map)
+    if not all(torch.equal(t, sd[k]) for k, t in loaded.items()):
+        raise SystemExit("the bundle's generator layers differ from "
+                         "synthetic_tf_weights'")
+    golden = np.load(GOLDEN)
+    img = torch.from_numpy(golden["ffhq_input"].astype(np.float32))[None]
+    uv = torch.from_numpy(golden["ffhq_uv"].astype(np.float32))[None]
+    model = build_generator(get_config(compute_dtype="float32"),
+                            {**sd, **loaded}, dev)
+    nonlocal_attention.launches = 0
+    with torch.inference_mode(), no_tf32():
+        out = model(img.to(dev), uv.to(dev))[1]
+    launches = nonlocal_attention.launches
+    score = psnr(out[0].clamp(0, 1).cpu().numpy(),
+                 golden["ffhq_pred"].astype(np.float32))
+    print(f"the bundle's conv1, heads and up3 ({len(loaded)} tensors, "
+          f"bitwise the golden weights') in the TF-golden generator: PSNR "
+          f"{score:.2f} dB vs the TF reference (bar 45 dB); the trio's "
+          f"logits finite; K1 launches {launches}", flush=True)
+    if not score >= 45.0:
+        raise SystemExit(f"the generator from the bundle: {score:.2f} dB")
+    return counts, launches
+
+
+def native_loader(smi: str) -> None:
+    """The g++ loader must load here; it against numpy on NATIVE_CROPS
+    crops to 256 px, and both timed."""
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise SystemExit("the native loader did not load on this machine")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    imgs = rng.uniform(size=(NATIVE_CROPS, 720, 720, 3)).astype(np.float32)
+    x0 = rng.integers(-60, 300, size=(NATIVE_CROPS, 2))
+    side = rng.integers(260, 480, size=(NATIVE_CROPS, 1))
+    boxes = np.concatenate([x0, x0 + side], axis=1).astype(np.int32)
+    turns = {"native": [], "numpy": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lib_out = native.batch_crop_resize(imgs, boxes, 256)
+        turns["native"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        np_out = np.stack([native._crop_resize_np(imgs[i], boxes[i], 256)
+                           for i in range(NATIVE_CROPS)])
+        turns["numpy"].append(time.perf_counter() - t0)
+    err = float(np.abs(lib_out - np_out).max())
+    single = native.crop_resize(imgs[0], boxes[0], 256)
+    print(f"native loader: loaded ({native.library_path().name}, "
+          f"{build_s:.2f} s to build and load); {NATIVE_CROPS} crops of "
+          f"720x720 to 256x256: batch_crop_resize "
+          + ", ".join(f"{1e3 * t:.1f}" for t in turns["native"])
+          + f" ms ({os.cpu_count()} threads), numpy "
+          + ", ".join(f"{1e3 * t:.1f}" for t in turns["numpy"])
+          + f" ms (host CPU, {smi}); max |native - numpy| {err:.2e} (limit "
+          f"{NATIVE_ATOL:g})", flush=True)
+    if not (err <= NATIVE_ATOL and np.array_equal(single, lib_out[0])):
+        raise SystemExit("the native loader disagrees with numpy")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms inside, the
+    process's setting restored after."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def mesh_ucb_inputs(dev, sd: dict, work: str):
+    """(two UCBEvaluators on `dev`, each with its generator; the batch,
+    sizes and PartInputs of MESH_UCB_IMAGES images of a synthetic UCB tree
+    at 256 px, f32, device geometry) for the fused step."""
+    root = synthetic_ucb_tree(os.path.join(work, "ucb"))
+    cfg = get_config("ucb", checkpoint_dir=os.path.join(work, "ucb_out"),
+                     compute_dtype="float32", device_geometry=True,
+                     part_mask_root=root,
+                     data_dirs_test=(os.path.join(root, "input", "*"),))
+    evs = [UCBEvaluator(cfg, sd, device=dev) for _ in range(2)]
+    ev, params, s = evs[0], PostprocessParams(), cfg.img_size
+    jbs, sizes, pis = [], [], []
+    for step, (batch, box, name) in zip(range(MESH_UCB_IMAGES),
+                                        Dataset(cfg, "test")):
+        parts = ev._load_part_masks(root, step, sample_name=name)
+        size = int(min(box[3] - box[1], s))
+        pis.append(prep_part_inputs(ev._resized_parts(parts, size), params))
+        jbs.append(ev._ingress(batch, to_device=False))
+        sizes.append(size)
+    _, stacked, sizes, pi = ev._stack_chunk([], jbs, sizes, pis,
+                                            MESH_UCB_IMAGES)
+    batch = {k: ev._tensor(v) for k, v in stacked.items()}
+    return evs, batch, ev._tensor(sizes), pi.to(dev)
+
+
+def mesh_ucb(dev, sd: dict, smi: str, work: str) -> dict:
+    """The fused UCB step of MESH_UCB_IMAGES images over a (2,) mesh of
+    two entries on the card (a replica each) against the one-device step,
+    f32 with TF32 off and cuDNN deterministic: every output identical to
+    the one-device step run on each shard's images, and within phase 10's
+    f32 bars of it on all the images at once (detected identical).
+    Returns {one-device K1 launches, mesh K1 launches}."""
+    evs, batch, size_t, pi = mesh_ucb_inputs(dev, sd, work)
+    ev, params, s = evs[0], PostprocessParams(), evs[0].config.img_size
+    mesh = make_mesh((2,), ("data",), devices=[dev, dev])
+    one = build_fused_ucb_batch_step(ev._fused_fwd(), params, s)
+    two = build_fused_ucb_batch_step([e._fused_fwd() for e in evs], params,
+                                     s, mesh=mesh)
+    launches, reports, outs = {}, {}, {}
+    # cuDNN's default f32 algorithms are not reproducible from call to
+    # call (two calls of the one-device step moved a composite value by a
+    # u8 step and SSIM by 6e-8); its deterministic ones are, batch for batch
+    with no_tf32(), deterministic_cudnn():
+        for label, step_fn in (("one device", one), ("mesh", two)):
+            reports[label] = {}
+            nonlocal_attention.launches = 0
+            outs[label] = [o.cpu() for o in step_fn(batch, size_t, pi,
+                                                    reports[label])]
+            launches[label] = nonlocal_attention.launches
+        # the one-device step on each shard's images alone: the mesh's
+        # arithmetic, batch for batch
+        half = MESH_UCB_IMAGES // 2
+        shards = [[o.cpu() for o in one(
+            {key: t[lo:lo + half] for key, t in batch.items()},
+            size_t[lo:lo + half],
+            PartInputs(**{f.name: getattr(pi, f.name)[lo:lo + half]
+                          for f in dataclasses.fields(PartInputs)}))]
+            for lo in (0, half)]
+    with no_tf32():           # timed with cuDNN's default algorithms
+        ms = {label: cuda_ms(lambda f=f: f(batch, size_t, pi), iters=2,
+                             warmup=1)
+              for label, f in (("one device", one), ("mesh", two))}
+    by_shard = [torch.cat(parts) for parts in zip(*shards)]
+    same = [torch.equal(a, b) for a, b in zip(outs["mesh"], by_shard)]
+    ref = outs["one device"]
+    det_same = torch.equal(outs["mesh"][0], ref[0])
+    steps = [(outs["mesh"][i].int() - ref[i].int()).abs() for i in (1, 2)]
+    d_psnr, d_ssim = ((outs["mesh"][i] - ref[i]).abs().max().item()
+                      for i in (3, 4))
+    k, v = batch["img"].shape[:2]
+    print(f"fused UCB step over a (2,) mesh on one card, {k} images x {v} "
+          f"views at {s} px, f32, TF32 off, cuDNN deterministic: "
+          f"detected, composite, shadow "
+          f"map, PSNR, SSIM identical to the one-device step run on each "
+          f"shard's images: {same}; against the one-device step on all "
+          f"{k}: detected identical {det_same}, composite and shadow map "
+          f"u8 steps at most {steps[0].max().item()}, "
+          f"{steps[1].max().item()} ({int((steps[0] > 0).sum())}, "
+          f"{int((steps[1] > 0).sum())} values differ), max |dPSNR| "
+          f"{d_psnr:.3e} dB, max |dSSIM| {d_ssim:.3e}; label iterations "
+          f"{reports['mesh']['label_iterations']} (one device "
+          f"{reports['one device']['label_iterations']}); mean PSNR "
+          f"{outs['mesh'][3].mean().item():.3f} dB; a step "
+          + ", ".join(f"{label} {t:.1f} ms" for label, t in ms.items())
+          + f" ({smi}; the two replicas share the card: no scaling "
+          f"figure); K1 launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()), flush=True)
+    # batch for batch the arithmetic is the same: identical.  Against the
+    # whole k, cuDNN picks its algorithms by batch size (40 views alone
+    # against inside 80: 4.2e-7): phase 10's f32 bars for two batchings
+    if not all(same) or reports["mesh"]["label_iterations"] != \
+            reports["one device"]["label_iterations"]:
+        raise SystemExit("the fused UCB step over the mesh differs from "
+                         "the one-device step on the same shards")
+    if not (det_same and max(t.max().item() for t in steps) <= 1
+            and d_psnr <= 0.01 and d_ssim <= 1e-4):
+        raise SystemExit("the fused UCB step over the mesh misses the "
+                         "one-device step's bars")
+    if launches["mesh"] != 2 * ATTN_CALLS_PER_FORWARD:
+        raise SystemExit(f"the mesh step launched K1 {launches['mesh']} "
+                         f"times, expected {2 * ATTN_CALLS_PER_FORWARD}")
+    return launches
+
+
+def s2d_and_packed(dev, sd: dict, smi: str) -> int:
+    """bench.py's forward (256 px, B=128, bf16, folded BN) with s2d_convs
+    off and on, in turns, and the packed decoder tail against the direct
+    one at B=128 (tools/bench_packed_tail.py's segment), in turns.
+    Returns the K1 launches of the s2d forward."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.0, 0.9, (BENCH_BATCH, 256, 256, 3))
+                         .astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(size=(BENCH_BATCH, 256, 256, 3))
+                         .astype(np.float32)).to(dev)
+    kw = dict(compute_dtype="bfloat16", fold_bn=True, egress_dtype="bfloat16")
+    models = {"direct": build_generator(get_config(**kw), sd, dev),
+              "s2d": build_generator(get_config(s2d_convs=True, **kw), sd,
+                                     dev)}
+    with torch.inference_mode():
+        outs = {}
+        for label, m in models.items():
+            nonlocal_attention.launches = 0
+            outs[label] = m(x, u)[1].float().clamp(0, 1)
+            if label == "s2d":
+                launches = nonlocal_attention.launches
+        db = psnr(outs["s2d"].cpu().numpy(), outs["direct"].cpu().numpy())
+        diff = (outs["s2d"] - outs["direct"]).abs().max().item()
+        del outs
+        turns = alternate_ms({label: lambda m=m: m(x, u)
+                              for label, m in models.items()},
+                             reps=3, iters=5)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    print(f"GSC forward, B={BENCH_BATCH} 256 px bf16 folded: direct "
+          f"{med['direct']:.2f} ms, s2d_convs {med['s2d']:.2f} ms "
+          f"(s2d / direct {med['s2d'] / med['direct']:.3f}; by turn direct "
+          + ", ".join(f"{t:.2f}" for t in turns["direct"]) + ", s2d "
+          + ", ".join(f"{t:.2f}" for t in turns["s2d"])
+          + f"; {smi}); outputs {db:.2f} dB apart (bar {S2D_BAR_DB} dB), "
+          f"max |diff| {diff:.3e}; K1 launches {launches}", flush=True)
+    if not db >= S2D_BAR_DB:
+        raise SystemExit(f"s2d_convs moved the bf16 forward: {db:.2f} dB")
+    if launches != ATTN_CALLS_PER_FORWARD:
+        raise SystemExit(f"the s2d forward launched K1 {launches} times")
+    del models, x, u
+    torch.cuda.empty_cache()
+
+    # the packed decoder tail: ConvT(128 -> 64, s2) + bias + affine + leaky
+    # + 7x7 head (64 -> 2), direct at 256 px against packed at 128 px
+    g = torch.Generator().manual_seed(0)
+    seg = torch.randn(BENCH_BATCH, PACKED_CIN, 128, 128, generator=g)
+    wt = 0.05 * torch.randn(PACKED_CIN, PACKED_CMID, 3, 3, generator=g)
+    bt, shift = (0.1 * torch.randn(PACKED_CMID, generator=g)
+                 for _ in range(2))
+    scale = 0.5 + torch.rand(PACKED_CMID, generator=g)
+    wh = 0.05 * torch.randn(2, PACKED_CMID, 7, 7, generator=g)
+    bh = 0.1 * torch.randn(2, generator=g)
+
+    def tails(dt):
+        """(direct, packed) segment functions with every operand on the
+        card in dtype `dt`, the packed kernels made once."""
+        w_t, b_t, sh, sc, w_h, b_h = (t.to(dev, dt) for t in (
+            wt, bt, shift, scale, wh, bh))
+        col = [v[None, :, None, None] for v in (b_t, sc, sh)]
+        wt_p = packed.convt_packed_kernel(w_t)
+        wh_p = packed.conv_same_packed_kernel(w_h)
+        tiled = [packed.tile_phase(v)[None, :, None, None]
+                 for v in (b_t, sc, sh, b_h)]
+
+        def direct(xs):
+            y = F.conv_transpose2d(xs, w_t, stride=2)[..., :256, :256]
+            y = F.leaky_relu((y + col[0]) * col[1] + col[2], 0.3)
+            return F.conv2d(y, w_h, b_h, padding=3)
+
+        def packed_tail(xs):
+            y = packed.convt_packed(xs, wt_p) + tiled[0]
+            y = F.leaky_relu(y * tiled[1] + tiled[2], 0.3)
+            return packed.unpack_image(
+                packed.conv_same_packed(y, wh_p) + tiled[3], 2)
+
+        return direct, packed_tail
+
+    with torch.inference_mode(), no_tf32():
+        direct, packed_tail = tails(torch.float32)
+        xs = seg[:2].to(dev)
+        err = (direct(xs) - packed_tail(xs)).abs().max().item()
+    seg = seg.to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        direct, packed_tail = tails(torch.bfloat16)
+        turns = alternate_ms({"direct": lambda: direct(seg),
+                              "packed": lambda: packed_tail(seg)},
+                             reps=3, iters=10)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    print(f"decoder tail (ConvT {PACKED_CIN}->{PACKED_CMID} + affine + "
+          f"leaky + 7x7 head), B={BENCH_BATCH}, bf16: direct "
+          f"{med['direct']:.3f} ms, packed {med['packed']:.3f} ms (packed / "
+          f"direct {med['packed'] / med['direct']:.3f}; by turn direct "
+          + ", ".join(f"{t:.3f}" for t in turns["direct"]) + ", packed "
+          + ", ".join(f"{t:.3f}" for t in turns["packed"])
+          + f"; {smi}); f32 packed vs direct max |diff| {err:.2e} (limit "
+          f"{PACKED_ATOL:g})", flush=True)
+    if not err <= PACKED_ATOL:
+        raise SystemExit(f"the packed tail disagrees with the direct one: "
+                         f"{err}")
+    return launches
+
+
+def rest_path(dev, smi: str, work: str) -> dict:
+    """Phase 17: the TF bundle reader, the native loader, the fused UCB
+    step over a mesh and the s2d and packed timings; then K1 at every
+    (shape, dtype) these runs gave it, against its plain version."""
+    t_phase = time.perf_counter()
+    seen, stop_recording = record_attention_shapes()
+    try:
+        counts, bundle_launches = bundle_reader(dev)
+        native_loader(smi)
+        mesh_launches = mesh_ucb(dev, golden_weights(), smi, work)
+        s2d_launches = s2d_and_packed(dev, golden_weights(), smi)
+    finally:
+        stop_recording()
+    print("K1 at the shapes phase 17's runs gave it, against its plain "
+          "version:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    k1_err = max(check_k1(gen, shape, dtype)
+                 for _, shape, dtype in sorted(seen, key=str))
+    launches = {"tf bundle forward": bundle_launches,
+                "ucb one device": mesh_launches["one device"],
+                "ucb mesh": mesh_launches["mesh"],
+                "s2d forward": s2d_launches}
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return {"launches": launches, "k1_err": k1_err, "verify": counts}
 
 
 if __name__ == "__main__":

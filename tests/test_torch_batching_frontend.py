@@ -169,7 +169,9 @@ def test_collector_fault_fails_every_waiter_and_closes():
     both threads end.  The first batch, dispatched before, is served."""
     svc = _StubService(batch_size_fails_after=1)   # batch one's read
     svc.gate.clear()
-    fe = BatchingFrontend(svc, max_batch=4, max_delay_ms=100.0)
+    # the collector closes a full batch at once, so a long delay makes
+    # batch one exactly the four first submits however slow the machine
+    fe = BatchingFrontend(svc, max_batch=4, max_delay_ms=5000.0)
     first = [fe.submit(*_req()) for _ in range(4)]
     time.sleep(0.3)               # batch one staged, its forward held
     rest = [fe.submit(*_req()) for _ in range(9)]

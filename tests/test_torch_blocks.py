@@ -64,8 +64,8 @@ def _x(rng, c, s=16, b=2):
 def test_conv_block(rng, ksize, stride, norm, act):
     flax_block = jb.ConvBlock(8, ksize=ksize, stride=stride,
                               norm="batch" if norm else None, act=act)
-    torch_block = tb.ConvBlock(5, 8, ksize=ksize, stride=stride, norm=norm,
-                               act=act)
+    torch_block = tb.ConvBlock(5, 8, ksize=ksize, stride=stride,
+                               norm="batch" if norm else None, act=act)
     _compare(flax_block, torch_block, "conv", _x(rng, 5), rng)
 
 

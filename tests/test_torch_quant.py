@@ -200,9 +200,9 @@ def test_split_head_block_is_exact_on_the_gain_channel():
     """int8_channels=(1,): channel 0 is the plain conv exactly, channel 1
     JAX's int8 conv within 1 ulp; the parameters are the plain conv's."""
     x, w, b = _conv_inputs(seed=3)
-    block = ConvBlock(C_IN, 2, ksize=7, norm=False, act=False, int8=True,
+    block = ConvBlock(C_IN, 2, ksize=7, norm=None, act=False, int8=True,
                       int8_scale=2.5, int8_channels=(1,))
-    plain = ConvBlock(C_IN, 2, ksize=7, norm=False, act=False)
+    plain = ConvBlock(C_IN, 2, ksize=7, norm=None, act=False)
     assert block.state_dict().keys() == plain.state_dict().keys()
     with torch.no_grad():
         for m in (block, plain):
