@@ -30,16 +30,27 @@ def dequantize(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@functools.lru_cache(maxsize=64)
+def _constant(name: str, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """`_GRAY_W` or `_YUV` as a tensor on `device`, made once:
+    a host-to-device copy of a fresh host tensor waits on the stream, so a
+    forward that made its constants each call would hold the host until
+    the card caught up.  Made outside inference mode, so that autograd may
+    save it."""
+    with torch.inference_mode(False):
+        value = _GRAY_W if name == "gray" else _YUV
+        return torch.tensor(value, dtype=dtype, device=device)
+
+
 def rgb_to_grayscale(x: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> [..., 1] luma, computed in x's dtype."""
-    w = torch.tensor(_GRAY_W, dtype=x.dtype, device=x.device)
-    return (x * w).sum(dim=-1, keepdim=True)
+    return (x * _constant("gray", x.dtype, x.device)).sum(dim=-1, keepdim=True)
 
 
 def rgb_to_yuv(x: torch.Tensor) -> torch.Tensor:
     """[..., 3] RGB -> YUV with the reference's inline matrix."""
-    m = torch.from_numpy(_YUV).to(device=x.device, dtype=x.dtype)
-    return torch.matmul(x, m.t())
+    return torch.matmul(x, _constant("yuv", x.dtype, x.device).t())
 
 
 def rgb_to_hsv(x: torch.Tensor) -> torch.Tensor:

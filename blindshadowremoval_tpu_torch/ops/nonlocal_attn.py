@@ -7,11 +7,18 @@ kernels become hand-written Hopper kernels: the forward `_attn_kernel` in
 and how the design answers that.  `nonlocal_attention_reference` and
 `nonlocal_attention_bwd_reference` are their plain PyTorch versions.
 
-Dispatch is by where the tensors live, and nothing else: CPU tensors take
-the plain versions, CUDA tensors launch the kernels or raise.  There is no
-fallback from a kernel to its plain version.  With autograd recording,
-`nonlocal_attention` is one `torch.autograd.Function` on both devices: on
-the card K1 also saves the row logsumexp, and the backward launches K2.
+Each kernel is an op of the `bsr` namespace (`torch.ops.bsr.nonlocal_attn`,
+`nonlocal_attn_lse`, `nonlocal_attn_bwd`) with a CPU and a CUDA
+implementation, so the dispatcher routes by where the tensors live, and by
+nothing else: CPU tensors take the plain versions, CUDA tensors launch the
+kernels or raise.  There is no fallback from a kernel to its plain
+version.  Dispatch modes see one op per call whatever runs inside it, and
+each op carries its FLOP formula (`torch.utils.flop_counter`), so a count
+is the same on both routes although the kernels launch through ctypes,
+which no mode sees.  With autograd recording, `nonlocal_attention` is one
+`torch.autograd.Function` on both devices: the forward also returns the
+row logsumexp, and the backward launches K2 on the card.  `PlainRoute`
+runs the ops as their plain versions op by op on any device.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import register_flop_formula
 
 from blindshadowremoval_tpu_torch.ops import _build
 
@@ -71,14 +80,25 @@ def bwd_tolerance(ref: torch.Tensor, dtype: torch.dtype):
     return share * scale, rtol
 
 
+def _weighted(scores: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    w = torch.softmax(scores, dim=-1).to(g.dtype)
+    return torch.matmul(w.float(), g.float()).to(g.dtype)
+
+
 def nonlocal_attention_reference(theta: torch.Tensor, phi: torch.Tensor,
                                  g: torch.Tensor) -> torch.Tensor:
     """Plain forward: f32 scores and softmax, weights cast to g's dtype,
     second product accumulated in f32 and cast back (the TPU kernel's
     numerics).  No 1/sqrt(D) scale."""
+    return _weighted(torch.matmul(theta.float(), phi.float().transpose(1, 2)),
+                     g)
+
+
+def nonlocal_attention_lse_reference(theta: torch.Tensor, phi: torch.Tensor,
+                                     g: torch.Tensor):
+    """The plain forward and the f32 row logsumexp [B, N] of its scores."""
     scores = torch.matmul(theta.float(), phi.float().transpose(1, 2))
-    w = torch.softmax(scores, dim=-1).to(g.dtype)
-    return torch.matmul(w.float(), g.float()).to(g.dtype)
+    return _weighted(scores, g), torch.logsumexp(scores, dim=-1)
 
 
 def nonlocal_attention_bwd_reference(theta: torch.Tensor, phi: torch.Tensor,
@@ -99,26 +119,59 @@ def nonlocal_attention_bwd_reference(theta: torch.Tensor, phi: torch.Tensor,
     return dtheta.to(theta.dtype), dphi.to(phi.dtype), dg.to(g.dtype)
 
 
+_LIB = torch.library.Library("bsr", "DEF")
+_LIB.define("nonlocal_attn(Tensor theta, Tensor phi, Tensor g) -> Tensor")
+_LIB.define("nonlocal_attn_lse(Tensor theta, Tensor phi, Tensor g) "
+            "-> (Tensor, Tensor)")
+_LIB.define("nonlocal_attn_bwd(Tensor theta, Tensor phi, Tensor g, "
+            "Tensor out, Tensor lse, Tensor dout) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("nonlocal_attn",
+          lambda theta, phi, g: nonlocal_attention_reference(theta, phi, g),
+          "CPU")
+_LIB.impl("nonlocal_attn",
+          lambda theta, phi, g: _launch_fwd(theta, phi, g, False)[0], "CUDA")
+_LIB.impl("nonlocal_attn_lse",
+          lambda theta, phi, g: nonlocal_attention_lse_reference(
+              theta, phi, g), "CPU")
+_LIB.impl("nonlocal_attn_lse",
+          lambda theta, phi, g: _launch_fwd(theta, phi, g, True), "CUDA")
+_LIB.impl("nonlocal_attn_bwd",
+          lambda theta, phi, g, out, lse, dout:
+          nonlocal_attention_bwd_reference(theta, phi, g, dout), "CPU")
+_LIB.impl("nonlocal_attn_bwd",
+          lambda theta, phi, g, out, lse, dout: nonlocal_attention_bwd(
+              theta, phi, g, out, lse, dout.contiguous()), "CUDA")
+
+
+@register_flop_formula([torch.ops.bsr.nonlocal_attn,
+                        torch.ops.bsr.nonlocal_attn_lse])
+def _fwd_flops(theta_shape, phi_shape, g_shape, *args, **kwargs) -> int:
+    """theta phi^T and W g: 2*B*N*M*(D + Dg)."""
+    b, n, d = theta_shape
+    return 2 * b * n * phi_shape[1] * (d + g_shape[2])
+
+
+@register_flop_formula(torch.ops.bsr.nonlocal_attn_bwd)
+def _bwd_flops(theta_shape, phi_shape, g_shape, *args, **kwargs) -> int:
+    """The recomputed scores, dW = dO g^T, dg = W^T dO, dtheta = dS phi and
+    dphi = dS^T theta: 2*B*N*M*(3*D + 2*Dg)."""
+    b, n, d = theta_shape
+    return 2 * b * n * phi_shape[1] * (3 * d + 2 * g_shape[2])
+
+
 class _NonLocalAttention(torch.autograd.Function):
-    """Forward K1 (saving the row logsumexp) and backward K2 on the card;
+    """Forward K1 (with the row logsumexp) and backward K2 on the card;
     the plain forward and plain backward on the CPU."""
 
     @staticmethod
     def forward(ctx, theta, phi, g):
-        if _on_cpu(theta, phi, g):
-            out, lse = nonlocal_attention_reference(theta, phi, g), None
-        else:
-            out, lse = _launch_fwd(theta, phi, g, with_lse=True)
+        out, lse = torch.ops.bsr.nonlocal_attn_lse(theta, phi, g)
         ctx.save_for_backward(theta, phi, g, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        theta, phi, g, out, lse = ctx.saved_tensors
-        if lse is None:
-            return nonlocal_attention_bwd_reference(theta, phi, g, dout)
-        return nonlocal_attention_bwd(theta, phi, g, out, lse,
-                                      dout.contiguous())
+        return torch.ops.bsr.nonlocal_attn_bwd(*ctx.saved_tensors, dout)
 
 
 def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,
@@ -130,17 +183,27 @@ def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (theta, phi, g)):
         return _NonLocalAttention.apply(theta, phi, g)
-    if _on_cpu(theta, phi, g):
-        return nonlocal_attention_reference(theta, phi, g)
-    return _launch_fwd(theta, phi, g, with_lse=False)[0]
+    return torch.ops.bsr.nonlocal_attn(theta, phi, g)
 
 
 # kernel launches made by this process; tests and chip_smoke.py reset them
 nonlocal_attention.launches = 0
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+class PlainRoute(TorchDispatchMode):
+    """Inside, the attention ops run as their plain versions, op by op, on
+    whatever device the tensors lie, where the dispatch modes entered
+    before this one (a FlopCounterMode) see each product."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        plain = {torch.ops.bsr.nonlocal_attn: nonlocal_attention_reference,
+                 torch.ops.bsr.nonlocal_attn_lse:
+                     nonlocal_attention_lse_reference,
+                 torch.ops.bsr.nonlocal_attn_bwd:
+                     lambda theta, phi, g, out, lse, dout:
+                     nonlocal_attention_bwd_reference(theta, phi, g, dout),
+                 }.get(func.overloadpacket, func)
+        return plain(*args, **(kwargs or {}))
 
 
 def _check(name: str, tensors: dict) -> tuple[int, int, int]:

@@ -34,6 +34,7 @@ convolution's gradient (JAX `_int8_conv_bwd`), so the head can train.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -69,6 +70,15 @@ def _quantize(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
 
 
+@functools.lru_cache(maxsize=64)
+def _f32_constant(value, device: torch.device) -> torch.Tensor:
+    """`value` (a float or a tuple of them) as an f32 tensor on `device`,
+    made once: a host-to-device copy of a fresh host tensor waits on the
+    stream.  Made outside inference mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def quantize_activations(x: torch.Tensor, w: torch.Tensor,
                          static_scale: float | tuple = 0.0):
     """(int8 codes of x [B, C, H, W], int8 kernel, the f32 scale the int32
@@ -81,8 +91,7 @@ def quantize_activations(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(
                 f"per-channel static_scale has {len(static_scale)} entries "
                 f"for {x.shape[1]} input channels")
-        bounds = torch.tensor(static_scale, dtype=torch.float32,
-                              device=x.device)
+        bounds = _f32_constant(static_scale, x.device)
         x_scale = (bounds / 127.0 + 1e-12)[None, :, None, None]
         xq = _quantize(xf / x_scale)
         # the per-channel activation scales folded into the kernel; the
@@ -91,8 +100,7 @@ def quantize_activations(x: torch.Tensor, w: torch.Tensor,
         return xq, wq, w_scale[None, :, None, None]
     if static_scale > 0.0:
         # the scale is formed in f64 and rounded once, as jnp.asarray does
-        x_scale = torch.tensor(static_scale / 127.0, dtype=torch.float32,
-                               device=x.device)
+        x_scale = _f32_constant(static_scale / 127.0, x.device)
     else:   # <= 0: the dynamic per-sample max
         x_scale = xf.abs().amax(dim=(1, 2, 3), keepdim=True) / 127.0 + 1e-12
     xq = _quantize(xf / x_scale)

@@ -11,7 +11,8 @@ generator against the TF-reference golden, serves a batch of requests
 through `ShadowRemovalService` (the serving path, counting kernel launches),
 times the bench.py configuration, runs the GSC GAN train step at full width
 (the train path, counting launches of the forward and backward kernels) and
-an f32 step against the same step on the CPU, drives the evaluation path
+an f32 step of each variant against the same step on the CPU, drives
+the evaluation path
 (SFW-GSC AUC and SFW video against the TF-reference goldens, in-the-wild,
 and UCB with the heuristic post-processor, host-orchestrated and fused k
 images a pass, on a synthetic UCB tree) with K1 held and timed at the
@@ -43,8 +44,13 @@ discriminators and the golden generator; the g++ native loader, which must
 load, against numpy and timed; the fused UCB step of 8 images over a (2,)
 mesh on the card against the one-device step; bench.py's forward with
 `s2d_convs` off and on and the packed decoder tail against the direct
-one, in turns; K1 at every shape these runs gave it), and, after phases
-13 to 17, prints one JSON line with every kernel and, last,
+one, in turns; K1 at every shape these runs gave it), runs every
+measurement tool of `blindshadowremoval_tpu_torch/tools/` once (phase 18:
+one JSON record each; the profilers must name K1, and for training K2;
+K1 and K2 at every shape the tools gave them), times K1 and K2 against
+their plain versions, SDPA and the bound at every (shape, dtype) phases
+9 to 18 launched them at, and, after phases 13 to 18, prints one JSON
+line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends the run with a non-zero
 exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -78,6 +84,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from blindshadowremoval_tpu_torch import cli
 from blindshadowremoval_tpu_torch import config as config_module
@@ -167,6 +174,7 @@ from blindshadowremoval_tpu_torch.ops import nonlocal_attn as attn_module
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     KERNEL_TOLERANCE,
     SUPPORTED_D,
+    PlainRoute,
     _launch_fwd,
     bwd_tolerance,
     nonlocal_attention,
@@ -190,6 +198,47 @@ from blindshadowremoval_tpu_torch.train.losses import (
     reconstruction_losses,
 )
 from blindshadowremoval_tpu_torch.train.trainer import LOSS_NAMES, Trainer
+from blindshadowremoval_tpu_torch.tools import _timing
+from blindshadowremoval_tpu_torch.tools import bench as tools_bench
+from blindshadowremoval_tpu_torch.tools import bench_e2e as tools_e2e
+from blindshadowremoval_tpu_torch.tools import bench_fit as tools_bench_fit
+from blindshadowremoval_tpu_torch.tools import (
+    bench_int8_decoder as tools_int8,
+)
+from blindshadowremoval_tpu_torch.tools import (
+    bench_landmarks as tools_landmarks,
+)
+from blindshadowremoval_tpu_torch.tools import (
+    bench_packed_tail as tools_packed,
+)
+from blindshadowremoval_tpu_torch.tools import (
+    bench_serving_frontend as tools_frontend,
+)
+from blindshadowremoval_tpu_torch.tools import bench_sweep as tools_sweep
+from blindshadowremoval_tpu_torch.tools import (
+    bench_train as tools_bench_train,
+)
+from blindshadowremoval_tpu_torch.tools import bench_ucb_eval as tools_ucb
+from blindshadowremoval_tpu_torch.tools import (
+    calibrate_int8_head as tools_calibrate,
+)
+from blindshadowremoval_tpu_torch.tools import parity_serving as tools_parity
+from blindshadowremoval_tpu_torch.tools import (
+    profile_infer as tools_profile_infer,
+)
+from blindshadowremoval_tpu_torch.tools import (
+    profile_train as tools_profile_train,
+)
+from blindshadowremoval_tpu_torch.tools import (
+    roofline_infer as tools_roofline,
+)
+from blindshadowremoval_tpu_torch.tools._timing import (
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES,
+    PEAK_F32_FLOPS,
+    device_ms,
+    kernel_kind,
+)
 from blindshadowremoval_tpu_torch.utils import native, profiling
 from blindshadowremoval_tpu_torch.utils.checkpoint import CheckpointManager
 from blindshadowremoval_tpu_torch.utils.imageio import (
@@ -203,11 +252,6 @@ from blindshadowremoval_tpu_torch.utils.logging import TrainLogger
 ROOT = Path(__file__).resolve().parent
 TF_REF = ROOT / "tests" / "goldens" / "tf_ref"
 GOLDEN = TF_REF / "e2e_eval.npz"
-
-# H100 SXM published dense peaks (NVIDIA H100 datasheet)
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 SERVE_BATCH = 64
 SERVE_REQUESTS = 70          # one full batch and one padded tail
@@ -316,32 +360,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 100) -> float:
-    """Mean milliseconds of device work per call of `fn`, with the calls
-    queued ahead: a spin kernel holds the stream while the host enqueues
-    all `iters` calls, and CUDA events time them back to back, whatever the
-    host's launch rate (events around calls launched as they come read the
-    launch rate when a call is shorter than its launch).  The spin doubles
-    until the host has queued every call before it ends.  (torch.profiler's
-    traces of 50 such calls held 0-47 of them late in this script.)"""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued_in_time = not start.query()
-        torch.cuda.synchronize()
-        if queued_in_time:
-            return start.elapsed_time(end) / iters
-        cycles *= 2
 
 
 def alternate_ms(fns: dict, reps: int = 3, settle_s: float = 0.3,
@@ -676,45 +694,30 @@ def main() -> int:
     del cpu, compact
 
     phase("6 throughput: bench.py's configuration, for the record")
+    # tools/bench.py's harness on the served generator: BENCH_ITERS
+    # forwards chained after a warm-up chain, the input perturbed per call
+    # and per trial, the best of 3 trials by CUDA events; it raises when
+    # the summed outputs do not change between trials
     model = svc.gen
-    rng = np.random.default_rng(0)
     s = cfg.img_size
-    x = torch.from_numpy(rng.uniform(0.0, 0.9, (BENCH_BATCH, s, s, 3)).astype(
-        np.float32)).to(dev)
-    u = torch.from_numpy(rng.uniform(size=(BENCH_BATCH, s, s, 3)).astype(
-        np.float32)).to(dev)
-    sums = []
-
-    def step(k: int):
-        # perturbed input per call; the scalar sum is kept to show the
-        # outputs change from call to call
-        _, rgb, _, dif = model(x + 4e-3 * (k % 16), u)
-        sums.append(rgb.float().mean() + dif.float().mean())
-
+    img, uv, reg = tools_bench.make_inputs(BENCH_BATCH, s, 0, dev)
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        for k in range(3):
-            step(k)
-        before = nonlocal_attention.launches
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for k in range(BENCH_ITERS):
-            step(k + 3)
-        end.record()
-        torch.cuda.synchronize()
-    bench_ms = start.elapsed_time(end) / BENCH_ITERS
+    before = nonlocal_attention.launches
+    bench_ms = 1e3 * tools_bench.timed_forward(
+        model, img, uv, reg, iters=BENCH_ITERS) / BENCH_ITERS
     bench_launches = nonlocal_attention.launches - before
-    vals = torch.stack(sums[3:]).cpu().numpy()
-    if not (np.isfinite(vals).all() and np.all(vals[1:] != vals[:-1])):
-        raise SystemExit("benchmark outputs did not change between calls")
-    if bench_launches != ATTN_CALLS_PER_FORWARD * BENCH_ITERS:
+    if bench_launches != ATTN_CALLS_PER_FORWARD * BENCH_ITERS * 4:
         raise SystemExit(f"bench: {bench_launches} K1 launches")
     faces = BENCH_BATCH * 1e3 / bench_ms
     print(f"B={BENCH_BATCH} {s}x{s} bf16 folded: {bench_ms:.2f} ms/forward, "
           f"{faces:.1f} faces/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"({smi})", flush=True)
+    fwd = tools_bench.step(model)
+
+    def step(k: int):
+        fwd(img + k * _timing.STEP_EPS, uv, reg)
+
     # where the time goes: two forwards under torch.profiler, with a range
     # around each top-level block of the generator (forward hooks, removed
     # after); device kernels listed alone, since aten ops nest
@@ -780,8 +783,12 @@ def main() -> int:
     phase("8 train: the GSC GAN train step at full width, the train path")
     k1_train, k2_train, bare_step_ms = train_full_width(dev, smi)
 
+    # every (wrapper, shape, dtype) K1 and K2 launch at in this process
+    # from here to phase 18, for the kernel table's cells
+    table_seen, stop_table = record_attention_shapes()
     phase("9 the card's f32 train step against the CPU's")
-    card_vs_cpu_step(dev)
+    for variant in ("gsc", "tsm", "rgb"):
+        card_vs_cpu_step(dev, variant)
 
     phase("10 eval: the evaluation path")
     with tempfile.TemporaryDirectory() as work:
@@ -830,6 +837,21 @@ def main() -> int:
         rest = rest_path(dev, smi, work)
     max_err = max(max_err, rest["k1_err"])
 
+    phase("18 tools: the port's measurement programs")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        tools = tools_path(dev, smi, work, faces)
+    max_err = max(max_err, tools["k1_err"])
+    k2_err = max(k2_err, tools["k2_err"])
+    stop_table()
+    t0 = time.perf_counter()
+    print(f"the table's cells: K1 and K2 at the {len(table_seen)} (wrapper, "
+          "shape, dtype) phases 9-18 launched them at in this process, "
+          "device time a call:", flush=True)
+    k1_cells, k2_cells = kernel_cells(
+        torch.Generator(device=dev).manual_seed(20), table_seen)
+    print(f"the table's cells: {time.perf_counter() - t0:.1f} s", flush=True)
+
     phase("12 kernels")
     print(f"launches by path: serve K1 {main_launches}; train "
           f"({TRAIN_STEPS} steps) K1 {k1_train}, K2 {k2_train}; eval K1 "
@@ -845,7 +867,9 @@ def main() -> int:
                                       par_k1.items())
           + ", K2 " + ", ".join(f"{k} {v}" for k, v in par_k2.items())
           + "; the rest " + ", ".join(f"{k} K1 {v}"
-                                      for k, v in rest["launches"].items()))
+                                      for k, v in rest["launches"].items())
+          + "; tools " + ", ".join(f"{k} K1 {v[0]}, K2 {v[1]}"
+                                   for k, v in tools["launches"].items()))
     fit_k1 = sum(v[0] for v in fit.values())
     fit_k2 = sum(v[1] for v in fit.values())
     k1_shapes = [dict(shape=list(shape), **rec) for shape, rec in
@@ -862,7 +886,8 @@ def main() -> int:
         "launches": (main_launches + fit_k1
                      + front["launches"]["run_dir overlapped"]
                      + sum(par_k1[k] for k in par_train)
-                     + sum(rest["launches"].values())),
+                     + sum(rest["launches"].values())
+                     + sum(v[0] for v in tools["launches"].values())),
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -882,14 +907,17 @@ def main() -> int:
                              **{f"parallel {k}": v
                                 for k, v in par_k1.items()},
                              **{f"rest {k}": v
-                                for k, v in rest["launches"].items()}},
-        "shapes": k1_shapes,
+                                for k, v in rest["launches"].items()},
+                             **{f"tools {k}": v[0]
+                                for k, v in tools["launches"].items()}},
+        "shapes": k1_shapes + k1_cells,
     }, {
         "name": "nonlocal_attn_bwd",
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn_bwd.cu",
         "replaces": "blindshadowremoval_tpu/ops/pallas/nonlocal_attn.py:117",
-        "launches": k2_train + fit_k2 + sum(par_k2[k] for k in par_train),
+        "launches": (k2_train + fit_k2 + sum(par_k2[k] for k in par_train)
+                     + sum(v[1] for v in tools["launches"].values())),
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": bwd_plain_ms,
@@ -904,7 +932,10 @@ def main() -> int:
                                 for k, v in clip["launches"].items()
                                 if v[1]},
                              **{f"parallel {k}": v
-                                for k, v in par_k2.items()}},
+                                for k, v in par_k2.items()},
+                             **{f"tools {k}": v[1]
+                                for k, v in tools["launches"].items()
+                                if v[1]}},
         "shapes": [dict(shape=list(shape), ms=rec[0], plain_ms=rec[1],
                         library_ms=rec[2], bound_ms=rec[3], bound_by=rec[4])
                    for shape, rec in k2_timed.items()]
@@ -913,7 +944,8 @@ def main() -> int:
            dict(shape=list(PARALLEL_ATTN_SHAPE),
                 path="sharded train step, per rank", max_abs_err=par["k2_err"],
                 **dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by"), par["k2"])))],
+                            "bound_by"), par["k2"]))),
+           *k2_cells],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1754,13 +1786,11 @@ def step_operand_checks(trainer, state, batch, gen) -> dict:
     # K2 there, in turns with flash SDPA's backward on the same operands
     q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-    do4 = dout[:, None].contiguous()
+        flash, _ = sdpa_backward(q4, k4, v4, dout[:, None].contiguous())
     turns = alternate_ms({
         "kernel": lambda: nonlocal_attention_bwd(theta, phi, g, out, lse,
                                                  dout),
-        "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                             retain_graph=True)})
+        "flash": flash})
     with torch.no_grad():
         plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
             theta, phi, g, dout))
@@ -1876,6 +1906,32 @@ def check_k2(dev):
     return max_err, timed
 
 
+class RecordOps(TorchDispatchMode):
+    """Records each op dispatched inside, with its arguments, and runs
+    it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.calls.append((func, args, kwargs))
+        return func(*args, **kwargs)
+
+
+def sdpa_backward(q4, k4, v4, do4):
+    """(a call that runs the ops SDPA's autograd node dispatches for the
+    gradients of q4, k4, v4 given do4, their names): recorded once under
+    the SDPA backend in force, replayed without autograd's engine, which
+    would add its host time to a timing by events."""
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    with RecordOps() as rec:
+        torch.autograd.grad(o4, (q4, k4, v4), do4)
+    return ((lambda: [f(*a, **kw) for f, a, kw in rec.calls]),
+            sorted({str(f) for f, _, _ in rec.calls}))
+
+
 def time_k2(gen, shape) -> tuple:
     """K2 (bf16) timed in turns with flash SDPA's backward at the same
     head dim, and the plain backward; prints them with the bound.  Returns
@@ -1890,12 +1946,10 @@ def time_k2(gen, shape) -> tuple:
     # accumulated into .grad
     q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-    do4 = do[:, None].contiguous()
+        flash, _ = sdpa_backward(q4, k4, v4, do[:, None].contiguous())
     turns = alternate_ms({
         "kernel": lambda: nonlocal_attention_bwd(t, p, g, out, lse, do),
-        "flash": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                             retain_graph=True)})
+        "flash": flash})
     with torch.no_grad():
         plain_ms = cuda_ms(lambda: nonlocal_attention_bwd_reference(
             t, p, g, do))
@@ -2076,27 +2130,6 @@ def forward_stages(state, batch, gen, step_ms: float) -> None:
           flush=True)
 
 
-# (kind, substrings of a kernel's name), the first match wins
-_KERNEL_KINDS = (
-    ("layout transposes (cuDNN NCHW <-> NHWC)", ("nchwToNhwc", "nhwcToNchw")),
-    ("K1 and K2", ("attn_fwd", "bwd_dkdv", "bwd_dq", "bwd_delta",
-                   "bwd_prep", "bwd_hopper")),
-    ("FFT (disc blurs)", ("fft",)),
-    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
-    ("matrix products", ("gemm", "Kernel2")),
-    ("reductions", ("reduce_kernel",)),
-    ("copies and casts", ("copy",)),
-    ("other elementwise", ("elementwise",)),
-)
-
-
-def kernel_kind(name: str) -> str:
-    for kind, keys in _KERNEL_KINDS:
-        if any(k in name for k in keys):
-            return kind
-    return "other"
-
-
 def _to(draws, device):
     if isinstance(draws, dict):
         return {k: _to(v, device) for k, v in draws.items()}
@@ -2119,17 +2152,18 @@ def _bf16_fault(theta, phi, g):
                                 for x in (theta, phi, g)))
 
 
-def card_vs_cpu_step(dev):
-    """One f32 train step (TF32 off) on the card and on the CPU, on the same
-    batch and initial weights, with the randomness pinned: the same
-    compositor draws on both, no saturation jitter, no mirror swap.  Holds
-    the losses and Adam's first moments of G and D to CHECK_LOSS_RTOL and
-    CHECK_MOMENT_RTOL, and the moments that are zero in exact arithmetic to
-    CHECK_STRAY_SHARE.  Then plants two faults on the card and fails unless
-    the same limits reject each."""
+def card_vs_cpu_step(dev, variant: str = "gsc"):
+    """One f32 train step of `variant` (TF32 off) on the card and on the
+    CPU, on the same batch and initial weights, with the randomness pinned:
+    the same compositor draws on both, no saturation jitter, no mirror
+    swap, and TSM's ShareLayer gate on.  Holds the losses and Adam's first
+    moments of G and D to CHECK_LOSS_RTOL and CHECK_MOMENT_RTOL, and the
+    moments that are zero in exact arithmetic to CHECK_STRAY_SHARE.  For
+    GSC it then plants two faults on the card and fails unless the same
+    limits reject each."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("train", **CHECK_CFG)
+    cfg = get_config("train", variant=variant, **CHECK_CFG)
     views = 2 * cfg.batch_size
     batch = synthetic_train_batch(views, cfg.img_size, "cpu", seed=1)
     draws = draw_compose(torch.Generator().manual_seed(2), views, "cpu")
@@ -2140,12 +2174,13 @@ def card_vs_cpu_step(dev):
     # (label, device, batch, (owner, name, planted function) or None)
     cases = (("card", dev, batch, None),
              ("cpu", cpu, batch, None),
-             ("cpu+1e-6", cpu, perturbed, None),
-             ("card, K2 Delta x1.03", dev, batch,
-              (attn_module._NonLocalAttention, "backward",
-               staticmethod(_delta_fault))),
-             ("card, bf16 attention operands", dev, batch,
-              (blocks_module, "nonlocal_attention", _bf16_fault)))
+             ("cpu+1e-6", cpu, perturbed, None))
+    if variant == "gsc":
+        cases += (("card, K2 Delta x1.03", dev, batch,
+                   (attn_module._NonLocalAttention, "backward",
+                    staticmethod(_delta_fault))),
+                  ("card, bf16 attention operands", dev, batch,
+                   (blocks_module, "nonlocal_attention", _bf16_fault)))
     compose = trainer_module.compose_shadow_image
     runs = {}
     for label, device, b, fault in cases:
@@ -2159,6 +2194,7 @@ def card_vs_cpu_step(dev):
             trainer = Trainer(cfg, device=device)
             trainer._saturation_aug = lambda gen, gt, dark: (gt, dark)
             trainer._mirror_consistency = lambda gen, img: img
+            trainer.share_gate = lambda gen, train: True
             state = trainer.init_state(seed=0)
             nonlocal_attention.launches = 0
             nonlocal_attention_bwd.launches = 0
@@ -2195,7 +2231,7 @@ def card_vs_cpu_step(dev):
                     default=0.0)
         return loss, max(errs), stray
 
-    print("launches (K1, K2): " + ", ".join(
+    print(f"{variant}: launches (K1, K2): " + ", ".join(
         f"{label} {runs[label][2]}" for label, *_ in cases))
     print("losses card / CPU: " + ", ".join(
         f"{k} {runs['card'][0][k]:.6g} / {cpu_losses[k]:.6g}"
@@ -2215,13 +2251,15 @@ def card_vs_cpu_step(dev):
               f"largest of the zero moments {stray:.3e} of the top (limit "
               f"{CHECK_STRAY_SHARE:g} for the card)"
               f"{'; rejected' if rejected[label] else ''}", flush=True)
-    want = 2 * (CHECK_CFG["n_res"],)
+    # RGB has n_res // 2 ResBottlenecks, each with its NonLocal block
+    want = 2 * (CHECK_CFG["n_res"] // (2 if variant == "rgb" else 1),)
     if any(runs[label][2] != (want if device.type == "cuda" else (0, 0))
            for label, device, *_ in cases):
-        raise SystemExit("a card step did not launch K1 and K2 once per "
-                         "NonLocal block, or a CPU step did")
+        raise SystemExit(f"{variant}: a card step did not launch K1 and K2 "
+                         "once per NonLocal block, or a CPU step did")
     if rejected["card"] or worst("card")[2] >= CHECK_STRAY_SHARE:
-        raise SystemExit("the card's train step disagrees with the CPU's")
+        raise SystemExit(f"the card's {variant} train step disagrees with "
+                         "the CPU's")
     if not all(rejected[label] for label, _, _, fault in cases if fault):
         raise SystemExit("the limits let a planted fault through")
 
@@ -4385,6 +4423,236 @@ def rest_path(dev, smi: str, work: str) -> dict:
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({smi})",
           flush=True)
     return {"launches": launches, "k1_err": k1_err, "verify": counts}
+
+
+# the tools (phase 18): each measuring function of
+# blindshadowremoval_tpu_torch/tools/ once on the card, bench at full
+# width, bench_train at phase 8's batch, the rest at small counts on
+# phase 10's UCB tree, phase 13's training tree and the fixture bundle
+TOOLS_BENCH_ITERS = 20
+TOOLS_SWEEP = [2, 16]         # queued (B < 16) and by events
+TOOLS_TRAIN_STEPS = 2
+TOOLS_FLOP_RTOL = 1e-2        # the kernel route's FLOPs against the plain's
+# the keys of each tool's record (the JAX tool's JSON keys where it prints
+# JSON, the port's record where it prints text), "device" in each
+TOOL_KEYS = {
+    "bench": ("metric", "value", "unit", "vs_baseline"),
+    "bench_sweep": ("batch", "faces_per_sec", "timing"),
+    "roofline_infer": (
+        "config", "batch", "gflops_per_face", "mb_accessed_per_face",
+        "arithmetic_intensity_flop_per_byte", "measured_ms_per_batch",
+        "faces_per_sec", "t_compute_ms", "t_bandwidth_ms", "bound",
+        "speed_of_light_ms", "fraction_of_speed_of_light"),
+    "profile_infer": ("device_ms_per_fwd", "us_per_face", "kinds", "top"),
+    "profile_train": ("device_ms_per_step", "us_per_view", "kinds", "top"),
+    "bench_train": (
+        "batch_size", "views_per_step", "compute_dtype", "vgg_dtype",
+        "remat", "s2d", "step_time_ms", "steps_per_sec", "views_per_sec",
+        "step_tflops", "mfu_pct_vs_bf16_peak"),
+    "bench_fit": ("loader_ms_per_sample", "upload_mb_per_s",
+                  "fit_ms_per_step", "views_per_sec"),
+    "bench_ucb_eval": ("bench", "views", "dtype", "compact_ingress", "host",
+                       "fused"),
+    "bench_serving_frontend": ("batch_api_req_per_s", "frontend_req_per_s",
+                               "batches", "latency_mean_ms",
+                               "latency_p95_ms"),
+    "bench_e2e": ("detect_images_per_s", "acd_images_per_s",
+                  "e2e_images_per_s", "run_dir"),
+    "bench_landmarks": ("fan_faces_per_s", "sfd_images_per_s",
+                        "host_decode_ms"),
+    "bench_packed_tail": ("us_per_face", "max_err"),
+    "bench_packed_tail --grad": ("us_per_face", "max_err"),
+    "bench_int8_decoder": ("tail_rel_err", "us_per_face"),
+    "calibrate_int8_head": ("absmax", "suggested_bound", "checkpoint_bounds",
+                            "psnr_dynamic_db", "psnr_static_db"),
+    "parity_serving": tuple(k for k in tools_parity.CONFIGS if k != "f32"),
+}
+
+
+def kernel_cells(gen, seen) -> tuple[list, list]:
+    """K1 and K2 at every (wrapper, shape, dtype) in `seen`, each with its
+    plain version, the SDPA library call (flash for bf16, the
+    memory-efficient backend for f32, the math backend where either
+    refuses the shape) and the bound: device time a call with the calls
+    queued ahead, SDPA's backward as `sdpa_backward`'s replay.  Returns
+    ([K1 cells], [K2 cells])."""
+    k1_cells, k2_cells = [], []
+    for name, shape, dtype in sorted(seen, key=str):
+        b, n, d = shape
+        t, p, g, do = k2_operands(gen, shape, dtype)
+        q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
+        do4 = do[:, None].contiguous()
+        fwd = name == "nonlocal_attention"
+
+        def library(backend):
+            with sdpa_kernel(backend):
+                if fwd:
+                    with torch.no_grad():
+                        return device_ms(lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, scale=1.0), 20), []
+                replay, ops = sdpa_backward(q4, k4, v4, do4)
+            return device_ms(replay, 20), ops
+
+        backend = (SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16
+                   else SDPBackend.EFFICIENT_ATTENTION)
+        with no_tf32():
+            try:
+                lib_ms, lib_ops = library(backend)
+            except _timing.HostSyncError:
+                raise
+            except RuntimeError:         # the backend refuses the shape
+                backend = SDPBackend.MATH
+                lib_ms, lib_ops = library(backend)
+            with torch.no_grad():
+                if fwd:
+                    ms = device_ms(lambda: _launch_fwd(t, p, g, False), 20)
+                    plain_ms = device_ms(
+                        lambda: nonlocal_attention_reference(t, p, g), 20)
+                    bound_ms, bound_by = attention_bound_ms(b, n, d, dtype)
+                else:
+                    out, lse = _launch_fwd(t, p, g, with_lse=True)
+                    ms = device_ms(lambda: nonlocal_attention_bwd(
+                        t, p, g, out, lse, do), 20)
+                    plain_ms = device_ms(
+                        lambda: nonlocal_attention_bwd_reference(t, p, g, do),
+                        20)
+                    bound_ms, bound_by = attention_bwd_bound_ms(b, n, d,
+                                                                dtype)
+        cell = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_backend=backend.name.lower(), bound_ms=bound_ms,
+                    library_ops=lib_ops,
+                    bound_by=bound_by, path="phases 9-18")
+        print(f"{'K1' if fwd else 'K2'} {shape} {cell['dtype']}: kernel "
+              f"{ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound "
+              f"{bound_ms:.4f} ms, {bound_by}), plain {plain_ms:.4f} ms, "
+              f"sdpa {cell['library_backend']} {lib_ms:.4f} ms", flush=True)
+        (k1_cells if fwd else k2_cells).append(cell)
+    return k1_cells, k2_cells
+
+
+def tool_record(name: str, result: dict, seconds: float,
+                launches: tuple) -> None:
+    """Prints one tool's record as a JSON line; exits on a missing key."""
+    missing = [k for k in TOOL_KEYS[name] + ("device",) if k not in result]
+    if missing:
+        raise SystemExit(f"tool {name}: keys {missing} missing from its "
+                         "record")
+    print(json.dumps({"tool": name, "seconds": round(seconds, 2),
+                      "launches": list(launches), **result}), flush=True)
+
+
+def roofline_plain_flops(dev) -> int:
+    """FLOPs of bench's forward at B=2 with the attention's ops run as
+    their plain versions (`PlainRoute`), counted by FlopCounterMode, which
+    then sees the plain version's two matrix products in place of the
+    op."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = tools_bench.make_gen(device=dev)
+    img, uv, reg = tools_bench.make_inputs(2, tools_bench.SIZE, 0, dev)
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc, \
+            PlainRoute():
+        model(img, uv, reg)
+    return fc.get_total_flops()
+
+
+def tools_path(dev, smi: str, work: str, bench_faces: float) -> dict:
+    """Phase 18: every tool's measuring function on the card, one JSON
+    record each; fails on an exception (a stale timed result among them),
+    a missing key, a profile that names no K1 (and for training no K2),
+    or roofline_infer's FLOPs more than TOOLS_FLOP_RTOL from the plain
+    route's.  Then K1 and K2 at every shape the tools gave them against
+    their plain versions."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ucb = synthetic_ucb_tree(os.path.join(work, "ucb"))
+    train_glob, _, _ = synthetic_train_tree(os.path.join(work, "train"))
+    bundle = str(TF_BUNDLE)
+    launches, records = {}, {}
+
+    def run(name, fn, *args, **kwargs):
+        k1, k2 = nonlocal_attention.launches, nonlocal_attention_bwd.launches
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds = time.perf_counter() - t0
+        launches[name] = (nonlocal_attention.launches - k1,
+                          nonlocal_attention_bwd.launches - k2)
+        for r in result if isinstance(result, list) else [result]:
+            tool_record(name, r, seconds, launches[name])
+        records[name] = result
+        return result
+
+    seen, stop_recording = record_attention_shapes()
+    try:
+        run("bench", tools_bench.run, iters=TOOLS_BENCH_ITERS, device=dev)
+        run("bench_sweep", lambda: list(tools_sweep.sweep(
+            TOOLS_SWEEP, iters=10, device=dev)))
+        run("roofline_infer", tools_roofline.roofline, batch=2, iters=10,
+            device=dev)
+        run("profile_infer", tools_profile_infer.profile, batch=8, iters=2,
+            out=os.path.join(work, "infer_trace"), device=dev)
+        run("profile_train", tools_profile_train.profile, batch=2, iters=1,
+            out=os.path.join(work, "train_trace"), device=dev)
+        run("bench_train", tools_bench_train.bench_config, TRAIN_BATCH,
+            TOOLS_TRAIN_STEPS, "bfloat16", "bfloat16", device=dev)
+        torch.cuda.empty_cache()
+        run("bench_fit", tools_bench_fit.bench_fit, train_glob, batch=4,
+            steps=2, warm=1, loader_samples=8, compact=True, u8=True,
+            device_darken=True, prefetch=True, device=dev)
+        run("bench_ucb_eval", tools_ucb.bench_ucb_eval,
+            os.path.join(ucb, "input", "*"), ucb, images=3, device=dev)
+        run("bench_serving_frontend", tools_frontend.bench_frontend,
+            requests=32, clients=4, batch_size=16, device=dev)
+        run("bench_e2e", tools_e2e.bench_e2e, images=8, det_batch=4,
+            fan_batch=8, serve_batch=4, device=dev)
+        # FAN-4's forward overflows the device's launch queue: by events
+        run("bench_landmarks", tools_landmarks.bench_landmarks, batch=16,
+            det_batch=2, iters=3, device=dev)
+        run("bench_packed_tail", tools_packed.bench_tail, batch=16, iters=5,
+            device=dev)
+        run("bench_packed_tail --grad", tools_packed.bench_tail, batch=16,
+            iters=3, grad=True, device=dev)
+        run("bench_int8_decoder", tools_int8.bench_decoder, batch=16,
+            iters=5, device=dev)
+        run("calibrate_int8_head", tools_calibrate.calibrate, bundle,
+            os.path.join(ucb, "input", "*"), images=2, device=dev)
+        run("parity_serving", tools_parity.parity, bundle,
+            os.path.join(ucb, "input", "*"), ucb, ucb_images=1, device=dev)
+    finally:
+        stop_recording()
+
+    for name, kinds in (("profile_infer", ("K1",)),
+                        ("profile_train", ("K1", "K2"))):
+        named = records[name]["kinds"]
+        if any(named.get(k, [0.0, 0])[1] == 0 for k in kinds):
+            raise SystemExit(f"{name} names no {' or '.join(kinds)} among "
+                             f"the kernels: {sorted(named)}")
+    rf = records["roofline_infer"]
+    counted = rf["gflops_per_face"] * rf["batch"] * 1e9
+    plain = roofline_plain_flops(dev)
+    print(f"roofline_infer at B=2: {counted:.6g} FLOPs on the kernel route "
+          f"(the op's formula), {plain:.6g} on the plain route "
+          f"(its products counted), apart {abs(counted / plain - 1):.2e} "
+          f"(limit {TOOLS_FLOP_RTOL:g})", flush=True)
+    if not abs(counted / plain - 1) <= TOOLS_FLOP_RTOL:
+        raise SystemExit("roofline_infer's FLOPs depend on the route")
+    print(f"bench: {records['bench']['value']} faces/s against phase 6's "
+          f"{bench_faces:.1f} ({smi})", flush=True)
+
+    print("K1 and K2 at the shapes phase 18's tools gave them, against "
+          "their plain versions:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    k1_err = k2_err = 0.0
+    for name, shape, dtype in sorted(seen, key=str):
+        if name == "nonlocal_attention":
+            k1_err = max(k1_err, check_k1(gen, shape, dtype))
+        else:
+            k2_err = max(k2_err, check_k2_case(gen, shape, dtype))
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err}
 
 
 if __name__ == "__main__":

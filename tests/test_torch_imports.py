@@ -37,6 +37,19 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_forbidden_check_covers_the_tools():
+    """The measurement tools (`blindshadowremoval_tpu_torch/tools/`) are
+    among the sources checked above: none may import the JAX package,
+    bench.py or the repository's tools/ either."""
+    tools = sorted((ROOT / "blindshadowremoval_tpu_torch" / "tools").glob(
+        "*.py"))
+    assert len(tools) == 17          # __init__.py and the 16 tools
+    assert set(tools) <= set(_port_sources())
+    for path in tools:
+        roots = set(_imported_roots(path))
+        assert not roots & (set(FORBIDDEN) | {"bench", "tools"}), path
+
+
 def test_port_runs_with_jax_blocked():
     """Import every port module, build the generator on the CPU and run the
     evaluation modules' image I/O with `jax`, `flax`, `cv2`, `PIL`,
