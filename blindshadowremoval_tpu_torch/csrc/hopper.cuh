@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory barriers
 // (mbarrier), the Tensor Memory Accelerator (TMA) and warpgroup matrix
-// multiply (wgmma) with 128-byte-swizzled shared-memory operands.
+// multiply (wgmma) with 128-byte-swizzled shared-memory operands for the
+// bf16 kernels; cp.async and 3xTF32 products on mma.sync for the f32 ones.
 //
 // Layout shared by the TMA maps and the wgmma descriptors: a bf16 tile is
 // cut into panels of 64 columns (128 bytes a row; an f32 tile into panels
@@ -182,6 +183,14 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// returns once at most `kPending` of the warpgroup's committed wgmma
+// groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
 // Pins registers in place around an asynchronous wgmma: the compiler may
 // neither move their reads and writes across this point nor reuse them.
 template <int N>
@@ -285,7 +294,187 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// TF32 operands (wgmma k8: 8 f32 = 32 bytes of a 128-byte K-major row).
+// Both operands of a tf32 wgmma are K-major: no transpose.  A from
+// registers in the m16n8k8 A layout per warp (rows 16w..16w+15 of the
+// warpgroup's 64), B from shared memory.
+
+// d[64x32] (+)= A[64x8] . B[8x32]
+__device__ __forceinline__ void wgmma_rs_m64n32k8_tf32(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : BSR_ACC8(0), BSR_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d[64x64] (+)= A[64x8] . B[8x64]
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : BSR_ACC8(0), BSR_ACC8(8), BSR_ACC8(16), BSR_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d[64x128] (+)= A[64x8] . B[8x128]
+__device__ __forceinline__ void wgmma_rs_m64n128k8_tf32(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, "
+      "p, 1, 1;\n"
+      "}\n"
+      : BSR_ACC8(0), BSR_ACC8(8), BSR_ACC8(16), BSR_ACC8(24), BSR_ACC8(32),
+        BSR_ACC8(40), BSR_ACC8(48), BSR_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef BSR_ACC8
+
+// -------------------------------------------------------------- cp.async
+// 16 bytes from global to shared memory, asynchronously; when `live` is
+// false nothing is read and the 16 bytes are zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// returns once at most `kPending` of this thread's committed groups are
+// still in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// ------------------------------------------------- 3xTF32 on mma.sync
+// f32 products on the tensor cores to f32 accuracy: each operand splits
+// into big = tf32(x) and small = x - big, and a product sums small.big +
+// big.small + big.big in f32 (small.small, ~2^-22 of it, is dropped).
+// Fragments of mma.m16n8k8 (lane = 4*grp + tig): A[16x8] a0 = (grp, tig),
+// a1 = (grp+8, tig), a2 = (grp, tig+4), a3 = (grp+8, tig+4); B[8x8] b0 =
+// (k=tig, n=grp), b1 = (k=tig+4, n=grp); C[16x8] c0, c1 = (grp,
+// 2tig..2tig+1), c2, c3 = (grp+8, 2tig..2tig+1).  An operand read with its
+// reduction index along the rows may take k = tig as row 2tig and k =
+// tig+4 as row 2tig+1 of each 8-row step, as long as both operands do: a
+// C fragment then is an A fragment as it lies ({c0, c2, c1, c3}).
+
+// big = x rounded to TF32 (10 stored mantissa bits) to nearest, ties away
+// from zero: half a TF32 ulp added, the 13 low bits cleared (two integer
+// operations; sm_90 runs cvt.rna.tf32.f32 as a longer sequence).  small =
+// x - big, exact in f32; the tensor cores read an operand's top 19 bits,
+// so small enters truncated to TF32, within 2^-10 of itself.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// an A (N = 4) or B (N = 2) fragment as its big and small parts
+template <int N>
+struct Tf32Frag {
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ Tf32Frag<N> split_frag(const float (&x)[N]) {
+  Tf32Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[16x8] = A[16x8] . B[8x8] on TF32 operands, d's old values ignored
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// d[16x8] += A[16x8] . B[8x8] to f32 accuracy.  The tensor cores align
+// the addends of a sum to the largest and truncate, so a long sum carried
+// through their accumulator loses about an ulp of its running value at
+// every step, all one way (on the card that put K1 past KERNEL_TOLERANCE
+// at D=256).  So the three products of each 8-step go into a fresh
+// accumulator, small ones first, and are added into d by f32 adds that
+// round to nearest.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const Tf32Frag<4>& a,
+                                           const Tf32Frag<2>& b) {
+  float t[4];
+  mma_tf32_fresh(t, a.small, b.big);
+  mma_tf32(t, a.big, b.small);
+  mma_tf32(t, a.big, b.big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// ------------------------------------------------------------- launches
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per
+// device and calling thread; `done` (one bit a device) is the caller's
+// thread_local flag word for that kernel.  The first call on a thread also
+// makes the device's primary context current there, which the tensor-map
+// encoder needs: a launch can come from a thread that has none (the
+// autograd engine's).
+template <typename Kernel>
+inline cudaError_t smem_limit_once(uint64_t& done, Kernel kernel,
+                                   int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
 
 // ------------------------------------------------------ tensor maps (host)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -43,8 +43,36 @@
 //    the next batch element's rows, and its keys past N score -inf.  The
 //    output goes back through shared memory (each consumer's own Q rows)
 //    with a 3-D TMA store, which clips at row N.
-//  * f32: CUDA cores in full f32 (no TF32), one warp per query row at a time,
-//    so strict-f32 parity needs no bypass.  Not on the serving path.
+//  * f32 (the evaluators' parity path: every f32 forward).  Bound: the
+//    4*B*N^2*D FLOP must come out to f32 accuracy (KERNEL_TOLERANCE), which
+//    one TF32 pass misses by 50-340x; on the CUDA cores (67 TFLOP/s) they
+//    take 0.64 ms at (80, 1024, 128), and the kernel this replaces, one key
+//    a lane and two shared-memory loads an FMA, took 4.06 ms there.  So
+//    both products run on the tensor cores as 3xTF32 (hopper.cuh): three
+//    TF32 passes at 495 TFLOP/s, 0.26 ms at that shape.  On mma.sync the
+//    same design ran no faster than SDPA's memory-efficient f32 kernel,
+//    which runs 3xTF32 on mma.sync too, however few instructions it spent
+//    around the products, so the products are wgmma, the only way to the
+//    tensor cores' full rate.  A tf32 wgmma reads both operands
+//    K-major and B only from shared memory: each key tile is split once
+//    per block into big and small parts and stored K-major with the
+//    128-byte swizzle (K as it lies, V transposed, its keys in the order
+//    in which P's score fragment holds them); A comes from registers (Q's
+//    rows read from shared memory and split, P split as it lies).  The
+//    tensor cores align a sum's addends to the largest and truncate, so a
+//    sum carried through their accumulator drifts by an ulp of its running
+//    value a step, all one way (past KERNEL_TOLERANCE at D=256 with P V
+//    carried over every key): each 8-column step of S and each 32-key tile
+//    of P V goes into a fresh accumulator, added by f32 adds.  Two
+//    warpgroups, 256 threads: at D=128 64 query rows each, at D=256 the
+//    same 64 rows, each half the score sum (exchanged through shared
+//    memory) and half the output columns, which keeps the 64x128 f32
+//    accumulator a warpgroup's.  32-key tiles, loaded into registers
+//    while the softmax and P V of the tile before run.  A grid too small
+//    to fill the card's SMs in whole waves (B <= 10 at N = 1024) splits
+//    the keys into up to 4 shares (key_splits); a second kernel combines
+//    the shares' unnormalised O, row max and row sum in share order.  No
+//    atomics: the same inputs give the same bits from run to run.
 //  * Training: when `lse` is not null, the kernel also writes each row's
 //    logsumexp (f32, [B, N]), max + log(sum), which the backward kernel
 //    (nonlocal_attn_bwd.cu) takes to recompute the weights without a second
@@ -62,7 +90,8 @@
 // bf16 rounding of the weights.
 //
 // C interface (loaded with ctypes): bsr_nonlocal_attn_fwd returns a
-// cudaError_t value, 0 on success; the launch runs on `stream`.  The tensor
+// cudaError_t value, 0 on success; the launches run on `stream`; its f32
+// scratch holds bsr_nonlocal_attn_fwd_workspace floats.  The tensor
 // maps are encoded on the host at each call with cuTensorMapEncodeTiled,
 // looked up at run time (no link against libcuda).
 
@@ -71,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -425,11 +456,11 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int batch, int n, cudaStream_t stream) {
   using T = Tiles<D>;
-  // first, since it binds the device's context to this thread, which the
-  // encoder needs: a call can come from a thread that has none (the
-  // autograd engine's, recomputing a checkpointed forward)
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  // first, since its first call on a thread binds the device's context
+  // there, which the encoder needs: a call can come from a thread that has
+  // none (the autograd engine's, recomputing a checkpointed forward)
+  static thread_local uint64_t attr_set = 0;
+  cudaError_t err = bsr::smem_limit_once(attr_set, attn_fwd_bf16<D>, T::kSmem);
   if (err != cudaSuccess) return err;
   bsr::EncodeTiled encode = bsr::encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
@@ -447,136 +478,506 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 // ----------------------------------------------------------------- f32 path
-constexpr int kF32BlockM = 32;  // query rows per block (4 per warp)
-constexpr int kF32BlockN = 32;  // keys per tile: one per lane
-constexpr int kF32Threads = 256;
-constexpr int kF32RowsPerWarp = kF32BlockM / (kF32Threads / 32);
+namespace f32 {
 
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kKeys = 32;       // keys per tile: V^T's rows are one 128-byte
+                                // panel of them
+constexpr int kWidth = 128;     // output columns a warpgroup holds
+
+// D=128: the warpgroups take query rows 0-63 and 64-127 of the block, all
+// columns.  D=256: both take the block's 64 rows; warpgroup w sums the
+// scores over columns 128w..128w+127 of D, the two halves are exchanged
+// through shared memory and added (in the same order on both sides), and
+// w holds output columns 128w..128w+127.  Shared memory, 1024-byte
+// aligned: K_t's big and small parts, [D/32 panels][kKeys rows][128 B];
+// V_t^T's, [D rows][128 B]; both K-major with the 128-byte swizzle of the
+// wgmma descriptors; Q as loaded, rows of D + 4 floats, which put the
+// A-fragment reads on 32 banks; at D=256 the exchanged score halves.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+struct Cfg {
+  static constexpr bool kSplitK = D == 256;
+  static constexpr int kPvHalves = kSplitK ? 2 : 1;
+  static constexpr int kRows = kSplitK ? 64 : 128;
+  static constexpr int kLdQ = D + 4;
+  static constexpr int kKPart = kKeys * D * 4;      // bytes
+  static constexpr int kVPart = D * kKeys * 4;
+  static constexpr int kExchange = kSplitK ? 2 * 128 * (kKeys / 2) * 4 : 0;
+  static constexpr int kPerThread = kKeys * D / 4 / kThreads;   // float4s
+  static constexpr int kSmem = 2 * kKPart + 2 * kVPart + kRows * kLdQ * 4 +
+                               kExchange + 1024;
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
+
+// byte offset of `byte` of row `row` in a K-major 128-byte-swizzled panel
+__device__ __forceinline__ int swizzled(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// the k slot of key r within its 8-key step: P's score fragment holds keys
+// 2tig and 2tig + 1 of a step where an A fragment holds k = tig and
+// tig + 4 (hopper.cuh), so V^T's rows hold the keys in that order
+__device__ __forceinline__ int key_slot(int r) {
+  return (r & ~7) + ((r & 1) << 2) + ((r & 7) >> 1);
+}
+
+// rows row0 .. row0 + kRows - 1 of one batch element's [n, D] slice into
+// shared memory at row stride D + 4, by cp.async; rows past n read zeros
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n) {
+  constexpr int kChunks = D / 4;   // 16-byte chunks a row
+#pragma unroll 4
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool live = row0 + r < n;
+    bsr::cp_async16(dst + r * (D + 4) + col,
+                    src + (size_t)(live ? row0 + r : 0) * D + col, live);
+  }
+}
+
+// This thread's share of a key tile of K (row-major: consecutive threads
+// on consecutive 16 bytes of a row) or of V (key-major: consecutive
+// threads on consecutive keys of a 16-byte column, so that the transposed
+// stores land on 32 banks); keys past n are zeros.
+template <int D, bool kV>
+__device__ __forceinline__ void load_share(float4 (&r)[Cfg<D>::kPerThread],
+                                           const float* src, int key0,
+                                           int n) {
+#pragma unroll
+  for (int i = 0; i < Cfg<D>::kPerThread; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int row = kV ? e % kKeys : e / (D / 4);
+    const int col = kV ? (e / kKeys) * 4 : (e % (D / 4)) * 4;
+    r[i] = key0 + row < n
+        ? *reinterpret_cast<const float4*>(src + (size_t)(key0 + row) * D + col)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// the share split into TF32 big and small parts, into the swizzled K or
+// V^T layout at `dst` (big) and dst + part (small); then a fence, since
+// wgmma reads shared memory through the async proxy
+template <int D, bool kV>
+__device__ __forceinline__ void store_share(
+    const float4 (&r)[Cfg<D>::kPerThread], unsigned char* dst) {
+  constexpr int kPart = kV ? Cfg<D>::kVPart : Cfg<D>::kKPart;
+#pragma unroll
+  for (int i = 0; i < Cfg<D>::kPerThread; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const float x[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bsr::split_tf32(x[c], big[c], small[c]);
+    if (kV) {
+      const int slot = key_slot(e % kKeys) * 4;
+      const int col = (e / kKeys) * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int off = swizzled(col + c, slot);
+        *reinterpret_cast<uint32_t*>(dst + off) = big[c];
+        *reinterpret_cast<uint32_t*>(dst + kPart + off) = small[c];
+      }
+    } else {
+      const int row = e / (D / 4), col = (e % (D / 4)) * 4;
+      const int off =
+          (col / 32) * (kKeys * 128) + swizzled(row, (col % 32) * 4);
+      *reinterpret_cast<uint4*>(dst + off) =
+          make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(dst + kPart + off) =
+          make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  }
+  bsr::fence_proxy_async();
+}
+
+// Split over keys (blockIdx.z of gridDim.z): a block walks its share of
+// the key tiles; with more than one share it writes its unnormalised O,
+// row max and row sum into `part` for fwd_combine_f32 (layout there).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int n) {
-  constexpr int LDK = D + 1;      // lane j reads K row j: stride D+1 keeps
-                                  // the 32 lanes on 32 banks
-  constexpr int kCols = D / 32;   // output columns per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sk = sq + kF32BlockM * D;
-  float* sv = sk + kF32BlockN * LDK;
+             float* __restrict__ lse, float* __restrict__ part, int n) {
+  using C = Cfg<D>;
+  constexpr int LD = C::kLdQ;
+  constexpr int kSteps = C::kSplitK ? D / 16 : D / 8;   // S's 8-column
+                                                         // steps a warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kb = smem_raw +
+      ((1024 - (bsr::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* vb = kb + 2 * C::kKPart;          // big, then small
+  float* sq = reinterpret_cast<float*>(vb + 2 * C::kVPart);
+  float* sx = sq + C::kRows * LD;                  // [2][128][kKeys / 2]
 
   const size_t base = (size_t)blockIdx.y * n * D;
-  const int m0 = blockIdx.x * kF32BlockM;
-  const int warp = threadIdx.x / 32;
+  // through a shuffle, so that the compiler sees it uniform per warp and
+  // keeps the descriptors' addresses in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int m0 = blockIdx.x * C::kRows;
+  const int row0 = C::kSplitK ? 0 : wg * 64;       // the warpgroup's rows,
+  const int col0 = C::kSplitK ? wg * kWidth : 0;   // output columns
+  const int step0 = C::kSplitK ? wg * kSteps : 0;  // and S's steps
+  const int all_tiles = (n + kKeys - 1) / kKeys;
+  const int share = (all_tiles + gridDim.z - 1) / gridDim.z;
+  const int t0 = blockIdx.z * share;
+  const int tiles = min(all_tiles, t0 + share);   // this block's: t0..
 
-  for (int i = threadIdx.x; i < kF32BlockM * D; i += kF32Threads) {
-    const int r = i / D;
-    sq[i] = (m0 + r < n) ? q[base + (size_t)(m0 + r) * D + i % D] : 0.f;
-  }
-  float acc[kF32RowsPerWarp][kCols];
-  float row_max[kF32RowsPerWarp];
-  float row_sum[kF32RowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    row_max[r] = -INFINITY;
-    row_sum[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
+  load_rows<D, C::kRows>(sq, q + base, m0, n);
+  bsr::cp_async_commit();
+  float4 next_k[C::kPerThread], next_v[C::kPerThread];
+  load_share<D, false>(next_k, k + base, t0 * kKeys, n);
+  load_share<D, true>(next_v, v + base, t0 * kKeys, n);
+  store_share<D, false>(next_k, kb);
+  store_share<D, true>(next_v, vb);
+  bsr::cp_async_wait<0>();
+  __syncthreads();
 
-  for (int n0 = 0; n0 < n; n0 += kF32BlockN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32BlockN * D; i += kF32Threads) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool live = n0 + r < n;
-      sk[r * LDK + c] = live ? k[base + (size_t)(n0 + r) * D + c] : 0.f;
-      sv[i] = live ? v[base + (size_t)(n0 + r) * D + c] : 0.f;
+  // the warpgroup's panels of K (its half of D at D=256)
+  const uint32_t k_big = bsr::smem_addr(kb) + (step0 / 4) * (kKeys * 128);
+  const uint32_t k_small = k_big + C::kKPart;
+  const uint32_t v_big = bsr::smem_addr(vb) + col0 * 128;
+  const uint32_t v_small = v_big + C::kVPart;
+  const float* qw = sq + (row0 + warp * 16 + grp) * LD + step0 * 8 + tig;
+
+  float acc[kWidth / 2];
+#pragma unroll
+  for (int i = 0; i < kWidth / 2; ++i) acc[i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+
+  for (int t = t0; t < tiles; ++t) {
+    const bool more = t + 1 < tiles;
+    // S = Q K_t^T, 8 columns of D a step: each step's three passes into a
+    // fresh accumulator, added into s by f32 adds (hopper.cuh:mma_3xtf32
+    // says why); two steps in flight
+    float s[kKeys / 2], ts[2][kKeys / 2];
+    bsr::Tf32Frag<4> qa[2];
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int cur = i & 1;
+      const float* qp = qw + i * 8;
+      const float af[4] = {qp[0], qp[8 * LD], qp[4], qp[8 * LD + 4]};
+      qa[cur] = bsr::split_frag(af);
+      const uint32_t off = (i / 4) * (kKeys * 128) + (i % 4) * 32;
+      const uint64_t db = bsr::desc_sw128(k_big + off, 16, 1024);
+      const uint64_t ds = bsr::desc_sw128(k_small + off, 16, 1024);
+      bsr::fence_regs(ts[cur]);
+      bsr::fence_regs(qa[cur].big);
+      bsr::fence_regs(qa[cur].small);
+      bsr::wgmma_fence();
+      bsr::wgmma_rs_m64n32k8_tf32(ts[cur], qa[cur].small, db, 0);
+      bsr::wgmma_rs_m64n32k8_tf32(ts[cur], qa[cur].big, ds, 1);
+      bsr::wgmma_rs_m64n32k8_tf32(ts[cur], qa[cur].big, db, 1);
+      bsr::wgmma_commit();
+      if (i > 0) {
+        bsr::wgmma_wait<1>();
+        bsr::fence_regs(ts[cur ^ 1]);
+        bsr::fence_regs(qa[cur ^ 1].big);
+        bsr::fence_regs(qa[cur ^ 1].small);
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e) s[e] += ts[cur ^ 1][e];
+      }
     }
-    __syncthreads();
+    bsr::wgmma_wait<0>();
+    {
+      constexpr int last = (kSteps - 1) & 1;
+      bsr::fence_regs(ts[last]);
+      bsr::fence_regs(qa[last].big);
+      bsr::fence_regs(qa[last].small);
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) s[e] += ts[last][e];
+    }
+    if constexpr (C::kSplitK) {
+      // the other half of D's sum, from the other warpgroup: each thread
+      // holds the same score positions in both
+      float* mine = sx + (wg * 128 + threadIdx.x % 128) * (kKeys / 2);
+      float* theirs = sx + ((wg ^ 1) * 128 + threadIdx.x % 128) * (kKeys / 2);
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; e += 4) {
+        *reinterpret_cast<float4*>(mine + e) =
+            make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]);
+      }
+      __syncthreads();               // both halves written; K_t read
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; e += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(theirs + e);
+        s[e] += x.x;                 // a + b == b + a: both sides agree
+        s[e + 1] += x.y;
+        s[e + 2] += x.z;
+        s[e + 3] += x.w;
+      }
+      if (more) {   // K_t is read: K_t+1 in now, V_t+1 in flight
+        load_share<D, false>(next_k, k + base, (t + 1) * kKeys, n);
+        store_share<D, false>(next_k, kb);
+        load_share<D, true>(next_v, v + base, (t + 1) * kKeys, n);
+      }
+    } else if (more) {
+      // the next tile's loads, in flight through the softmax and P V
+      load_share<D, false>(next_k, k + base, (t + 1) * kKeys, n);
+      load_share<D, true>(next_v, v + base, (t + 1) * kKeys, n);
+    }
 
+    if ((t + 1) * kKeys > n) {       // ragged tail: keys past n score -inf
 #pragma unroll
-    for (int r = 0; r < kF32RowsPerWarp; ++r) {
-      const float* qr = sq + (warp * kF32RowsPerWarp + r) * D;
-      const float* kr = sk + lane * LDK;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      if (n0 + lane >= n) s = -INFINITY;
-      float mx = s;
+      for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      mx = fmaxf(mx, row_max[r]);
-      const float alpha = expf(row_max[r] - mx);
-      const float p = expf(s - mx);
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      }
-      row_max[r] = mx;
-      row_sum[r] = row_sum[r] * alpha + ps;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-      for (int j = 0; j < kF32BlockN; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          acc[r][c] = fmaf(pj, sv[j * D + lane + 32 * c], acc[r][c]);
+        for (int e = 0; e < 4; ++e) {
+          if (t * kKeys + j * 8 + 2 * tig + (e & 1) >= n) {
+            s[4 * j + e] = -INFINITY;
+          }
         }
       }
     }
+    // online softmax: the row max over the 4 lanes that share a row; every
+    // tile holds a live key, so it is finite and exp(-inf - max) = 0
+    float mx[2] = {row_max[0], row_max[1]};
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    const float alpha[2] = {expf(row_max[0] - mx[0]),
+                            expf(row_max[1] - mx[1])};
+    row_max[0] = mx[0];
+    row_max[1] = mx[1];
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < kKeys / 2; ++e) {
+      s[e] = expf(s[e] - mx[(e >> 1) & 1]);
+      psum[(e >> 1) & 1] += s[e];
+    }
+    row_sum[0] = row_sum[0] * alpha[0] + psum[0];
+    row_sum[1] = row_sum[1] * alpha[1] + psum[1];
+#pragma unroll
+    for (int j = 0; j < kWidth / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // O += P V_t: A = P as it lies in the score fragment, B = V_t^T's
+    // rows col0.. (k = key, in key_slot order); the tile's twelve products
+    // into a fresh accumulator, added into acc by f32 adds
+    bsr::Tf32Frag<4> pa[kKeys / 8];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const float pf[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]};
+      pa[j] = bsr::split_frag(pf);
+      bsr::fence_regs(pa[j].big);
+      bsr::fence_regs(pa[j].small);
+    }
+    // D=256 runs it on the two 64-column halves in turn, which keeps the
+    // fresh accumulator at 32 registers beside the next tile's share
+#pragma unroll
+    for (int h = 0; h < C::kPvHalves; ++h) {
+      constexpr int kN = kWidth / C::kPvHalves;
+      float to[kN / 2];
+      bsr::fence_regs(to);
+      bsr::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const uint32_t off = h * kN * 128 + j * 32;
+        const uint64_t db = bsr::desc_sw128(v_big + off, 16, 1024);
+        const uint64_t ds = bsr::desc_sw128(v_small + off, 16, 1024);
+        if constexpr (kN == 128) {
+          bsr::wgmma_rs_m64n128k8_tf32(to, pa[j].small, db, j > 0);
+          bsr::wgmma_rs_m64n128k8_tf32(to, pa[j].big, ds, 1);
+          bsr::wgmma_rs_m64n128k8_tf32(to, pa[j].big, db, 1);
+        } else {
+          bsr::wgmma_rs_m64n64k8_tf32(to, pa[j].small, db, j > 0);
+          bsr::wgmma_rs_m64n64k8_tf32(to, pa[j].big, ds, 1);
+          bsr::wgmma_rs_m64n64k8_tf32(to, pa[j].big, db, 1);
+        }
+      }
+      bsr::wgmma_commit();
+      bsr::wgmma_wait<0>();
+      bsr::fence_regs(to);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        bsr::fence_regs(pa[j].big);
+        bsr::fence_regs(pa[j].small);
+      }
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[h * kN / 2 + i] += to[i];
+    }
+
+    if (more) {
+      __syncthreads();               // both warpgroups have read V_t (and
+                                     // K_t at D=128)
+      if (!C::kSplitK) store_share<D, false>(next_k, kb);
+      store_share<D, true>(next_v, vb);
+      __syncthreads();               // K_t+1 and V_t+1 are in
+    }
   }
 
+  // epilogue: row sums over the 4 lanes, the logsumexp, O / sum
 #pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    const int row = m0 + warp * kF32RowsPerWarp + r;
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+  }
+  const size_t rows = (size_t)gridDim.y * n;      // of the whole batch
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + row0 + warp * 16 + grp + 8 * h;
     if (row >= n) continue;
-    if (lse != nullptr && lane == 0) {
-      lse[(size_t)blockIdx.y * n + row] = row_max[r] + logf(row_sum[r]);
-    }
+    const size_t r = (size_t)blockIdx.y * n + row;
+    if (part != nullptr) {           // this share's O, max and sum
+      float* dst = part + (blockIdx.z * rows + r) * D + col0 + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      o[base + (size_t)row * D + lane + 32 * c] = acc[r][c] / row_sum[r];
+      for (int j = 0; j < kWidth / 8; ++j) {
+        *reinterpret_cast<float2*>(dst + j * 8) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+      if (tig == 0 && col0 == 0) {
+        *reinterpret_cast<float2*>(
+            part + gridDim.z * rows * D + 2 * (blockIdx.z * rows + r)) =
+            make_float2(row_max[h], row_sum[h]);
+      }
+      continue;
+    }
+    if (lse != nullptr && tig == 0 && col0 == 0) {
+      lse[r] = row_max[h] + logf(row_sum[h]);
+    }
+    float* dst = o + base + (size_t)row * D + col0 + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < kWidth / 8; ++j) {
+      *reinterpret_cast<float2*>(dst + j * 8) =
+          make_float2(acc[4 * j + 2 * h] / row_sum[h],
+                      acc[4 * j + 2 * h + 1] / row_sum[h]);
     }
   }
+}
+
+// O and lse from the shares of a split over keys, added in share order:
+// part holds O [splits][B*N][D] unnormalised, then (max, sum) [splits][B*N]
+template <int D>
+__global__ void fwd_combine_f32(const float* __restrict__ part,
+                                float* __restrict__ o,
+                                float* __restrict__ lse, size_t rows,
+                                int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * (D / 4)) return;
+  const size_t r = i / (D / 4);
+  const float2* ml = reinterpret_cast<const float2*>(part + splits * rows * D);
+  float m = -INFINITY;
+  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, ml[sp * rows + r].x);
+  float sum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float2 x = ml[sp * rows + r];
+    const float w = expf(x.x - m);
+    const float4 y =
+        reinterpret_cast<const float4*>(part)[sp * rows * (D / 4) + i];
+    sum = fmaf(x.y, w, sum);
+    acc = make_float4(fmaf(y.x, w, acc.x), fmaf(y.y, w, acc.y),
+                      fmaf(y.z, w, acc.z), fmaf(y.w, w, acc.w));
+  }
+  reinterpret_cast<float4*>(o)[i] =
+      make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum);
+  if (lse != nullptr && i % (D / 4) == 0) lse[r] = m + logf(sum);
+}
+
+// Shares of a split over keys, 1-4 of at least 4 key tiles each: the count
+// that finishes the grid soonest, in block times: the waves of the card's
+// SMs that a grid of `s` shares a query tile takes, each wave 1 / s of a
+// block, and 5% more a share beyond the first for the partial sums and
+// the combine; the smaller count on a tie.  A grid that fills its last
+// wave keeps one.
+inline int key_splits(int batch, int n, int rows_per_block) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    sms = 132;
+  }
+  const long long blocks =
+      (long long)((n + rows_per_block - 1) / rows_per_block) * batch;
+  const int most = std::min(4, (n + kKeys - 1) / kKeys / 4);
+  int best = 1;
+  double best_cost = (double)((blocks + sms - 1) / sms);
+  for (int sp = 2; sp <= most; ++sp) {
+    const double cost = (double)((blocks * sp + sms - 1) / sms) / sp *
+                        (1.0 + 0.05 * (sp - 1));
+    if (cost < best_cost) {
+      best = sp;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+inline long long workspace(int batch, int n, int d) {
+  const int splits = key_splits(batch, n, d == 128 ? Cfg<128>::kRows
+                                                   : Cfg<256>::kRows);
+  return splits == 1 ? 0 : (long long)splits * batch * n * (d + 2);
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int batch, int n, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kF32BlockM * D + kF32BlockN * (D + 1) + kF32BlockN * D) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, float* work, int batch, int n,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  static thread_local uint64_t attr_set = 0;
+  cudaError_t err = bsr::smem_limit_once(attr_set, attn_fwd_f32<D>, C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kF32BlockM - 1) / kF32BlockM, batch);
-  attn_fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(
+  const int splits = key_splits(batch, n, C::kRows);
+  const dim3 grid((n + C::kRows - 1) / C::kRows, batch, splits);
+  attn_fwd_f32<D><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, n);
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
+      splits == 1 ? nullptr : work, n);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  const size_t rows = (size_t)batch * n;
+  fwd_combine_f32<D><<<(unsigned)((rows * (D / 4) + 255) / 256), 256, 0,
+                       stream>>>(work, static_cast<float*>(o), lse, rows,
+                                 splits);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  `lse` ([B, N] f32) may be null.
-// Returns a cudaError_t value.
+// Floats of the f32 `workspace` that bsr_nonlocal_attn_fwd takes: at f32,
+// the shares of a split over keys when the grid is small (fwd_combine_f32),
+// else none; at bf16 none.
+long long bsr_nonlocal_attn_fwd_workspace(int batch, int n, int d,
+                                          int dtype) {
+  if (dtype != 0 || batch < 1 || n < 1 || (d != 128 && d != 256)) return 0;
+  return f32::workspace(batch, n, d);
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  `lse` ([B, N] f32) may be null;
+// `workspace` holds bsr_nonlocal_attn_fwd_workspace floats (null when
+// that is 0).  Returns a cudaError_t value.
 int bsr_nonlocal_attn_fwd(const void* theta, const void* phi, const void* g,
-                          void* out, void* lse, int batch, int n, int d,
-                          int dtype, void* stream) {
+                          void* out, void* lse, void* workspace, int batch,
+                          int n, int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* w = static_cast<float*>(workspace);
   if (batch < 1 || batch > 65535 || n < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && d == 128) return (int)launch_bf16<128>(theta, phi, g, out, l, batch, n, s);
   if (dtype == 1 && d == 256) return (int)launch_bf16<256>(theta, phi, g, out, l, batch, n, s);
-  if (dtype == 0 && d == 128) return (int)launch_f32<128>(theta, phi, g, out, l, batch, n, s);
-  if (dtype == 0 && d == 256) return (int)launch_f32<256>(theta, phi, g, out, l, batch, n, s);
+  if (dtype == 0 && d == 128) return (int)f32::launch<128>(theta, phi, g, out, l, w, batch, n, s);
+  if (dtype == 0 && d == 256) return (int)f32::launch<256>(theta, phi, g, out, l, w, batch, n, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -65,12 +65,27 @@
 //    so the missing queries get P = 0), and zeroes dQ's workspace; a last
 //    one rounds dQ to bf16.  Keys past N score -inf (P = 0), and dK and dV
 //    go out through shared memory with 3-D TMA stores, which clip at row N.
-//  * Determinism: dQ's partial sums from the key tiles arrive in no fixed
-//    order, so dtheta can differ from run to run within the f32 rounding
-//    of its sums, before its bf16 rounding; dphi and dg are the same from
-//    run to run.
-//  * f32: CUDA cores in full f32 (no TF32), for strict parity; not on the
-//    train path.
+//  * Determinism (bf16): dQ's partial sums from the key tiles arrive in no
+//    fixed order, so dtheta can differ from run to run within the f32
+//    rounding of its sums, before its bf16 rounding; dphi and dg are the
+//    same from run to run.
+//  * f32 (the parity train steps: the card against the CPU, rank against
+//    rank).  Bound: the 10*B*N^2*D FLOP to f32 accuracy; the kernels this
+//    replaces ran them on the CUDA cores in two passes of three launches
+//    (Delta, dK/dV, dQ: seven products), which decided the time at the
+//    launched N = 64.  Here the five products run on the tensor cores as
+//    3xTF32 on mma.sync (hopper.cuh: each 8-step's three passes in a fresh
+//    accumulator, added by f32 adds), in one pass: a block of 8 warps owns
+//    64 keys and walks the queries 32 at a time, Delta = rowsum(dO o O) of
+//    each step computed in the block (8 lanes a query, a fixed order), so
+//    no pre-pass; dK and dV stay in registers; P^T, dS^T and dS go through
+//    shared memory (rows padded so that the fragment reads fall on 32
+//    banks), where every operand can be read in the layout its product
+//    wants (wgmma's tf32 form takes none MN-major, and dO, Q and K are so
+//    for dV, dK and dQ).  dQ: with one key block (N <= 64) each step's dQ is
+//    dtheta; else each block writes its partial dQ to its own slot of the
+//    workspace and a second launch adds the slots in block order.  One or
+//    two launches, no atomics: the same inputs give the same bits.
 //  No trap anywhere in the file: a trap makes ptxas ignore setmaxnreg.
 //
 // Numerics: the TPU kernel keeps W, dW and dS in f32.  Here P and dS are
@@ -756,12 +771,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   float* dq_acc = work;                              // [B, N, D]
   float* lse_pad = work + (size_t)batch * n * D;     // [B, npad]
   float* delta_pad = lse_pad + rows;                 // [B, npad]
-  // first, since it binds the device's context to this thread, which the
-  // encoder needs: a first call can come from a thread that has none (the
-  // autograd engine's)
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_hopper_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmem);
+  // first, since its first call on a thread binds the device's context
+  // there, which the encoder needs: a call can come from a thread that has
+  // none (the autograd engine's)
+  static thread_local uint64_t attr_set = 0;
+  cudaError_t err =
+      bsr::smem_limit_once(attr_set, bwd_hopper_bf16<D>, C::kSmem);
   if (err != cudaSuccess) return err;
   bsr::EncodeTiled encode = bsr::encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
@@ -793,250 +808,303 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace hop
 
-// ------------------------------------------ f32: Delta = rowsum(dO o O)
-constexpr int kDeltaThreads = 256;   // one warp per row
-
-template <int D>
-__global__ void __launch_bounds__(kDeltaThreads)
-bwd_delta_f32(const float* __restrict__ dout, const float* __restrict__ out,
-              float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * (kDeltaThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const float* a = dout + (size_t)row * D;
-  const float* b = out + (size_t)row * D;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
-    acc = fmaf(a[lane + 32 * c], b[lane + 32 * c], acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) delta[row] = acc;
-}
-
 // ----------------------------------------------------------------- f32 path
-constexpr int kF32Threads = 256;             // 8 warps
-constexpr int kF32Rows = 32;                 // rows a block owns, 4 per warp
-constexpr int kF32Step = 32;                 // rows per step: one per lane
-constexpr int kF32RowsPerWarp = kF32Rows / (kF32Threads / 32);
+namespace f32 {
 
-// Pass 1 in f32: dK and dV of 32 key rows; lane = query of the step.
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeys = 64;            // keys per block
+constexpr int kQ = 32;               // queries per step
+constexpr int kLdP = kQ + 8;         // P^T, dS^T: [kKeys][kLdP]
+constexpr int kLdT = kKeys + 8;      // dS: [kQ][kLdT]
+
+// Shared memory: K, V [kKeys][D + 4]; Q, dO [kQ][D + 4]; P^T, dS^T; dS;
+// lse and Delta of the step's queries.  Rows of D + 4 floats put the
+// fragment reads of K, V, Q and dO on 32 banks, rows of 8 floats more the
+// paired reads of P^T, dS^T and dS.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, int n) {
-  constexpr int LDS = D + 1;       // lane-row reads on 32 banks
-  constexpr int kCols = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + kF32Rows * D;
-  float* sq = sv + kF32Rows * D;
-  float* sdo = sq + kF32Step * LDS;
-  float* slse = sdo + kF32Step * LDS;
-  float* sdelta = slse + kF32Step;
+struct Cfg {
+  static constexpr int kLd = D + 4;
+  static constexpr int kSmem =
+      ((2 * kKeys + 2 * kQ) * kLd + 2 * kKeys * kLdP + kQ * kLdT + 2 * kQ) *
+      (int)sizeof(float);
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
 
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
-  const int j0 = blockIdx.x * kF32Rows;
+// rows row0 .. row0 + kRows - 1 of one batch element's [n, D] slice into
+// shared memory at row stride D + 4, by cp.async; rows past n read zeros
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n) {
+  constexpr int kChunks = D / 4;   // 16-byte chunks a row
+#pragma unroll 4
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool live = row0 + r < n;
+    bsr::cp_async16(dst + r * (D + 4) + col,
+                    src + (size_t)(live ? row0 + r : 0) * D + col, live);
+  }
+}
+
+// an A fragment whose reduction index runs along the rows' columns in
+// pairs: rows r and r + 8 at columns 2tig, 2tig + 1 of an 8-column step
+__device__ __forceinline__ bsr::Tf32Frag<4> paired_a(const float* p,
+                                                     int ld) {
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float af[4] = {lo.x, hi.x, lo.y, hi.y};
+  return bsr::split_frag(af);
+}
+
+// The block owns kKeys keys of one batch element and walks the queries kQ
+// at a time: dK and dV stay in registers, and each step's dQ over the
+// block's keys goes to `dq_out` (dtheta itself when one block holds every
+// key, else this block's slot of the partial sums).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ out,
+        const float* __restrict__ dout, const float* __restrict__ lse,
+        float* __restrict__ dq, float* __restrict__ dk,
+        float* __restrict__ dv, float* __restrict__ dq_part, int n) {
+  using C = Cfg<D>;
+  constexpr int LD = C::kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;                     // [kKeys][LD]
+  float* sv = sk + kKeys * LD;
+  float* sq = sv + kKeys * LD;          // [kQ][LD]
+  float* sdo = sq + kQ * LD;
+  float* sp = sdo + kQ * LD;            // P^T [kKeys][kLdP]
+  float* sds = sp + kKeys * kLdP;       // dS^T [kKeys][kLdP]
+  float* sdst = sds + kKeys * kLdP;     // dS [kQ][kLdT]
+  float* slse = sdst + kQ * kLdT;       // [kQ]
+  float* sdelta = slse + kQ;
+
+  const int b = blockIdx.y;
+  const int j0 = blockIdx.x * kKeys;
+  const size_t base = (size_t)b * n * D;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  // the warp's tiles: S^T and dP^T rows kr0.. (16 keys) x columns qc0..
+  // (16 queries); dK and dV rows kr0.. x columns dc0.. (D/2); dQ rows
+  // qr0.. (16 queries) x columns qd0.. (D/4)
+  const int kr0 = (warp % 4) * 16;
+  const int qc0 = (warp / 4) * 16;
+  const int dc0 = (warp / 4) * (D / 2);
+  const int qr0 = (warp % 2) * 16;
+  const int qd0 = (warp / 2) * (D / 4);
+  float* dq_out = gridDim.x == 1
+      ? dq + base
+      : dq_part + ((size_t)blockIdx.x * gridDim.y + b) * n * D;
 
-  for (int i = threadIdx.x; i < kF32Rows * D; i += kF32Threads) {
-    const int r = i / D;
-    const bool live = j0 + r < n;
-    sk[i] = live ? k[base + (size_t)j0 * D + i] : 0.f;
-    sv[i] = live ? v[base + (size_t)j0 * D + i] : 0.f;
+  load_rows<D, kKeys>(sk, k + base, j0, n);
+  load_rows<D, kKeys>(sv, v + base, j0, n);
+  bsr::cp_async_commit();
+
+  float dk_acc[D / 16][4], dv_acc[D / 16][4];
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
   }
-  float acc_dk[kF32RowsPerWarp][kCols];
-  float acc_dv[kF32RowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
-  }
 
-  for (int i0 = 0; i0 < n; i0 += kF32Step) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Step * D; i += kF32Threads) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool live = i0 + r < n;
-      sq[r * LDS + c] = live ? q[base + (size_t)(i0 + r) * D + c] : 0.f;
-      sdo[r * LDS + c] = live ? dout[base + (size_t)(i0 + r) * D + c] : 0.f;
-    }
-    if (threadIdx.x < kF32Step) {
-      const int i = i0 + threadIdx.x;
-      slse[threadIdx.x] = i < n ? lse[rbase + i] : INFINITY;
-      sdelta[threadIdx.x] = i < n ? delta[rbase + i] : 0.f;
-    }
-    __syncthreads();
-
+  const int steps = (n + kQ - 1) / kQ;
+  for (int i = 0; i < steps; ++i) {
+    const int q0 = i * kQ;
+    load_rows<D, kQ>(sq, q + base, q0, n);
+    load_rows<D, kQ>(sdo, dout + base, q0, n);
+    bsr::cp_async_commit();
+    {
+      // Delta = rowsum(dO o O) of the step's queries, 8 lanes a query in
+      // a fixed order, and their lse (+inf past n, so that P = 0 there)
+      const int qi = threadIdx.x / 8;
+      const int part = threadIdx.x % 8;
+      const int row = q0 + qi;
+      float acc = 0.f;
+      if (row < n) {
+        const float4* a =
+            reinterpret_cast<const float4*>(dout + base + (size_t)row * D);
+        const float4* c =
+            reinterpret_cast<const float4*>(out + base + (size_t)row * D);
 #pragma unroll
-    for (int r = 0; r < kF32RowsPerWarp; ++r) {
-      const float* kr = sk + (warp * kF32RowsPerWarp + r) * D;
-      const float* vr = sv + (warp * kF32RowsPerWarp + r) * D;
-      const float* qi = sq + lane * LDS;
-      const float* oi = sdo + lane * LDS;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(kr[d], qi[d], s);
-        dp = fmaf(vr[d], oi[d], dp);
-      }
-      const float p = expf(s - slse[lane]);
-      const float ds = p * (dp - sdelta[lane]);
-      for (int jq = 0; jq < kF32Step; ++jq) {
-        const float pj = __shfl_sync(0xffffffffu, p, jq);
-        const float dsj = __shfl_sync(0xffffffffu, ds, jq);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          acc_dv[r][c] = fmaf(pj, sdo[jq * LDS + lane + 32 * c], acc_dv[r][c]);
-          acc_dk[r][c] = fmaf(dsj, sq[jq * LDS + lane + 32 * c], acc_dk[r][c]);
+        for (int j = 0; j < D / 32; ++j) {
+          const float4 x = a[part + 8 * j];
+          const float4 y = c[part + 8 * j];
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+          acc = fmaf(x.z, y.z, acc);
+          acc = fmaf(x.w, y.w, acc);
         }
       }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    const int row = j0 + warp * kF32RowsPerWarp + r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      dk[base + (size_t)row * D + lane + 32 * c] = acc_dk[r][c];
-      dv[base + (size_t)row * D + lane + 32 * c] = acc_dv[r][c];
-    }
-  }
-}
-
-// Pass 2 in f32: dQ of 32 query rows; lane = key of the step.
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, int n) {
-  constexpr int LDS = D + 1;
-  constexpr int kCols = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sdo = sq + kF32Rows * D;
-  float* sk = sdo + kF32Rows * D;
-  float* sv = sk + kF32Step * LDS;
-
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
-  const int i0 = blockIdx.x * kF32Rows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < kF32Rows * D; i += kF32Threads) {
-    const bool live = i0 + i / D < n;
-    sq[i] = live ? q[base + (size_t)i0 * D + i] : 0.f;
-    sdo[i] = live ? dout[base + (size_t)i0 * D + i] : 0.f;
-  }
-  float l[kF32RowsPerWarp], dl[kF32RowsPerWarp];
-  float acc[kF32RowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    const int row = i0 + warp * kF32RowsPerWarp + r;
-    l[r] = row < n ? lse[rbase + row] : 0.f;
-    dl[r] = row < n ? delta[rbase + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < n; j0 += kF32Step) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Step * D; i += kF32Threads) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool live = j0 + r < n;
-      sk[r * LDS + c] = live ? k[base + (size_t)(j0 + r) * D + c] : 0.f;
-      sv[r * LDS + c] = live ? v[base + (size_t)(j0 + r) * D + c] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kF32RowsPerWarp; ++r) {
-      const float* qr = sq + (warp * kF32RowsPerWarp + r) * D;
-      const float* orow = sdo + (warp * kF32RowsPerWarp + r) * D;
-      const float* kj = sk + lane * LDS;
-      const float* vj = sv + lane * LDS;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], kj[d], s);
-        dp = fmaf(orow[d], vj[d], dp);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      if (part == 0) {
+        sdelta[qi] = acc;
+        slse[qi] = row < n ? lse[(size_t)b * n + row] : INFINITY;
       }
-      const float p = j0 + lane < n ? expf(s - l[r]) : 0.f;
-      const float ds = p * (dp - dl[r]);
-      for (int jk = 0; jk < kF32Step; ++jk) {
-        const float dsj = __shfl_sync(0xffffffffu, ds, jk);
+    }
+    bsr::cp_async_wait<0>();
+    __syncthreads();                    // K, V, Q, dO, lse, Delta are in
+
+    // S^T = K Q^T and dP^T = V dO^T (k = d in both operands)
+    float s[2][4], dpt[2][4];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          acc[r][c] = fmaf(dsj, sk[jk * LDS + lane + 32 * c], acc[r][c]);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpt[j][e] = 0.f;
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* ka = sk + (kr0 + grp) * LD + kk * 8 + tig;
+      const float* va = sv + (kr0 + grp) * LD + kk * 8 + tig;
+      const float kf[4] = {ka[0], ka[8 * LD], ka[4], ka[8 * LD + 4]};
+      const float vf[4] = {va[0], va[8 * LD], va[4], va[8 * LD + 4]};
+      const bsr::Tf32Frag<4> ak = bsr::split_frag(kf);
+      const bsr::Tf32Frag<4> av = bsr::split_frag(vf);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* qb = sq + (qc0 + j * 8 + grp) * LD + kk * 8 + tig;
+        const float* ob = sdo + (qc0 + j * 8 + grp) * LD + kk * 8 + tig;
+        const float qf[2] = {qb[0], qb[4]};
+        const float of[2] = {ob[0], ob[4]};
+        bsr::mma_3xtf32(s[j], ak, bsr::split_frag(qf));
+        bsr::mma_3xtf32(dpt[j], av, bsr::split_frag(of));
+      }
+    }
+    // P^T = exp(S^T - lse) (0 for a key past n), dS^T = P^T o (dP^T -
+    // Delta): into P^T and dS^T by key, and dS by query
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = kr0 + grp + 8 * h;
+        const int qc = qc0 + j * 8 + 2 * tig;
+        const bool live = j0 + key < n;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = live ? expf(s[j][2 * h + e] - slse[qc + e]) : 0.f;
+          ds[e] = p[e] * (dpt[j][2 * h + e] - sdelta[qc + e]);
+          sdst[(qc + e) * kLdT + key] = ds[e];
         }
+        *reinterpret_cast<float2*>(sp + key * kLdP + qc) =
+            make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(sds + key * kLdP + qc) =
+            make_float2(ds[0], ds[1]);
       }
     }
+    __syncthreads();                    // P^T, dS^T and dS are in
+
+    // dV += P^T dO and dK += dS^T Q (k = query: rows 2tig, 2tig + 1)
+#pragma unroll 1
+    for (int kk = 0; kk < kQ / 8; ++kk) {
+      const bsr::Tf32Frag<4> ap =
+          paired_a(sp + (kr0 + grp) * kLdP + kk * 8 + 2 * tig, kLdP);
+      const bsr::Tf32Frag<4> ads =
+          paired_a(sds + (kr0 + grp) * kLdP + kk * 8 + 2 * tig, kLdP);
+      const float* ob = sdo + (kk * 8 + 2 * tig) * LD + dc0 + grp;
+      const float* qb = sq + (kk * 8 + 2 * tig) * LD + dc0 + grp;
+#pragma unroll
+      for (int nb = 0; nb < D / 16; ++nb) {
+        const float of[2] = {ob[nb * 8], ob[LD + nb * 8]};
+        const float qf[2] = {qb[nb * 8], qb[LD + nb * 8]};
+        bsr::mma_3xtf32(dv_acc[nb], ap, bsr::split_frag(of));
+        bsr::mma_3xtf32(dk_acc[nb], ads, bsr::split_frag(qf));
+      }
+    }
+    // dQ of the step's queries over the block's keys = dS K (k = key)
+    float dq_acc[D / 32][4];
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      const bsr::Tf32Frag<4> a =
+          paired_a(sdst + (qr0 + grp) * kLdT + kk * 8 + 2 * tig, kLdT);
+      const float* kb = sk + (kk * 8 + 2 * tig) * LD + qd0 + grp;
+#pragma unroll
+      for (int nb = 0; nb < D / 32; ++nb) {
+        const float kf[2] = {kb[nb * 8], kb[LD + nb * 8]};
+        bsr::mma_3xtf32(dq_acc[nb], a, bsr::split_frag(kf));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + qr0 + grp + 8 * h;
+      if (row >= n) continue;
+      float* dst = dq_out + (size_t)row * D + qd0 + 2 * tig;
+#pragma unroll
+      for (int nb = 0; nb < D / 32; ++nb) {
+        *reinterpret_cast<float2*>(dst + nb * 8) =
+            make_float2(dq_acc[nb][2 * h], dq_acc[nb][2 * h + 1]);
+      }
+    }
+    __syncthreads();                    // the step's tiles are read
   }
 
 #pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    const int row = i0 + warp * kF32RowsPerWarp + r;
+  for (int h = 0; h < 2; ++h) {
+    const int row = j0 + kr0 + grp + 8 * h;
     if (row >= n) continue;
+    const size_t off = base + (size_t)row * D + dc0 + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      dq[base + (size_t)row * D + lane + 32 * c] = acc[r][c];
+    for (int nb = 0; nb < D / 16; ++nb) {
+      *reinterpret_cast<float2*>(dk + off + nb * 8) =
+          make_float2(dk_acc[nb][2 * h], dk_acc[nb][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + off + nb * 8) =
+          make_float2(dv_acc[nb][2 * h], dv_acc[nb][2 * h + 1]);
     }
   }
 }
 
-// ------------------------------------------------------------------ launch
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// dtheta = the key blocks' partial sums, added in block order, 4 values a
+// thread
+__global__ void bwd_dq_sum_f32(const float4* __restrict__ part,
+                               float4* __restrict__ dq, int blocks,
+                               size_t count4) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count4) return;
+  float4 acc = part[i];
+  for (int t = 1; t < blocks; ++t) {
+    const float4 x = part[(size_t)t * count4 + i];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  dq[i] = acc;
 }
 
+inline int key_blocks(int n) { return (n + kKeys - 1) / kKeys; }
+
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int batch,
-                       int n, cudaStream_t stream) {
-  const int rows = batch * n;
-  const int per_block = kDeltaThreads / 32;
-  bwd_delta_f32<D><<<(rows + per_block - 1) / per_block, kDeltaThreads, 0,
-                     stream>>>(static_cast<const float*>(dout),
-                               static_cast<const float*>(out), delta, rows);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   float* work, void* dq, void* dk, void* dv, int batch,
+                   int n, cudaStream_t stream) {
+  static thread_local uint64_t attr_set = 0;
+  cudaError_t err = bsr::smem_limit_once(attr_set, bwd_f32<D>, Cfg<D>::kSmem);
   if (err != cudaSuccess) return err;
-  const size_t smem1 =
-      (size_t)(2 * kF32Rows * D + 2 * kF32Step * (D + 1) + 2 * kF32Step) *
-      sizeof(float);
-  const size_t smem2 =
-      (size_t)(2 * kF32Rows * D + 2 * kF32Step * (D + 1)) * sizeof(float);
-  if ((err = set_smem(bwd_dkdv_f32<D>, smem1)) != cudaSuccess) return err;
-  if ((err = set_smem(bwd_dq_f32<D>, smem2)) != cudaSuccess) return err;
-  const dim3 grid((n + kF32Rows - 1) / kF32Rows, batch);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fdo = static_cast<const float*>(dout);
-  bwd_dkdv_f32<D><<<grid, kF32Threads, smem1, stream>>>(
-      fq, fk, fv, fdo, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dq_f32<D><<<grid, kF32Threads, smem2, stream>>>(
-      fq, fk, fv, fdo, lse, delta, static_cast<float*>(dq), n);
+  const int blocks = key_blocks(n);
+  bwd_f32<D><<<dim3(blocks, batch), kThreads, Cfg<D>::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), lse, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), work, n);
+  if ((err = cudaGetLastError()) != cudaSuccess || blocks == 1) return err;
+  const size_t count4 = (size_t)batch * n * D / 4;
+  bwd_dq_sum_f32<<<(unsigned)((count4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(work), static_cast<float4*>(dq),
+      blocks, count4);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 }  // namespace
 
@@ -1044,13 +1112,15 @@ extern "C" {
 
 // Floats of the f32 `workspace` that bsr_nonlocal_attn_bwd takes:
 // at bf16, dQ's f32 sums [B, N, D] and the padded lse and Delta
-// (2 x [B, N rounded up to 64]); at f32, Delta [B, N].
+// (2 x [B, N rounded up to 64]); at f32, dQ's partial sums of each block
+// of 64 keys ([ceil(N / 64), B, N, D]), none when one block holds N.
 long long bsr_nonlocal_attn_bwd_workspace(int batch, int n, int d,
                                           int dtype) {
   if (dtype == 1) {
     return (long long)batch * n * d + 2LL * batch * hop::padded(n);
   }
-  return (long long)batch * n;
+  const int blocks = f32::key_blocks(n);
+  return blocks == 1 ? 0 : (long long)blocks * batch * n * d;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  `lse` is the forward kernel's row
@@ -1069,9 +1139,9 @@ int bsr_nonlocal_attn_bwd(const void* theta, const void* phi, const void* g,
   if (dtype == 1 && d == 256)
     return (int)hop::launch<256>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
+    return (int)f32::launch<128>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   if (dtype == 0 && d == 256)
-    return (int)launch_f32<256>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
+    return (int)f32::launch<256>(theta, phi, g, out, dout, l, ws, dtheta, dphi, dg, batch, n, s);
   return (int)cudaErrorInvalidValue;
 }
 

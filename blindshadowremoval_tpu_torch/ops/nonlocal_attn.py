@@ -41,7 +41,14 @@ SUPPORTED_D = (128, 256)
 # |ref|) apart, after rounding their weights at different points (the
 # kernel exp(s - running max), the plain version the normalized weights),
 # which moves the f32 result by up to ~4e-4 at N <= 1024, D <= 256 with
-# unit-variance scores.  f32: summation order only.
+# unit-variance scores.  f32: the kernel's products are 3xTF32 on the
+# tensor cores (csrc/hopper.cuh), each within ~2^-22 of the f32 product,
+# and their sums run in another order; a CPU emulation
+# (tests/test_torch_nonlocal_attn.py, numpy seed 0) gives max(err - 1e-5
+# |ref|) of at most 5.3e-7 over the f32 shapes the main paths launch and
+# ragged N, one TF32 pass 4.7e-5 to 4.8e-4, and 3xTF32 without small.big
+# 2.6e-5 to 3.1e-4.  The tensor cores' own sums (truncated, not rounded)
+# are the kernel's to keep within this: csrc/hopper.cuh says how.
 KERNEL_TOLERANCE = {torch.bfloat16: (8e-4, 2.0 ** -7),
                     torch.float32: (1e-6, 1e-5)}
 # K2: per gradient tensor, |grad - ref| <= share * max|ref| + rtol * |ref|,
@@ -65,8 +72,10 @@ KERNEL_TOLERANCE = {torch.bfloat16: (8e-4, 2.0 ** -7),
 # (300, 64, 128) in dtheta or dphi; P and dS rounded to fp8 give 3.3e-2 or
 # more at each of those three shapes.  The floor keeps
 # a gradient that is zero in exact arithmetic (dtheta and dphi at N = 1)
-# to a small atol rather than to exact zero.  f32: summation order and
-# the exp of the saved logsumexp only.
+# to a small atol rather than to exact zero.  f32: five 3xTF32 products,
+# summation order and the exp of the saved logsumexp; the emulation gives
+# at most 1.45e-6 of max|ref| (at (4, 1024, 256)), one TF32 pass or
+# 3xTF32 without small.big 4.1e-4 to 1.0e-3.
 KERNEL_BWD_TOLERANCE = {torch.bfloat16: (3e-3, 2.0 ** -7),
                         torch.float32: (1e-5, 1e-5)}
 BWD_SCALE_FLOOR = 2.0 ** -4
@@ -258,15 +267,24 @@ def _launch_fwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
                      {"theta": theta, "phi": phi, "g": g})
     lib = _library("nonlocal_attn")
     fn = lib.bsr_nonlocal_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    size = lib.bsr_nonlocal_attn_fwd_workspace
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
     out = torch.empty_like(theta)
     lse = (torch.empty((b, n), dtype=torch.float32, device=theta.device)
            if with_lse else None)
     with torch.cuda.device(theta.device):
+        # f32 scratch for a split over keys when the grid is small (the
+        # size is the card's to say: it counts its SMs); none otherwise
+        floats = size(b, n, d, _DTYPE_CODE[theta.dtype])
+        work = (torch.empty(floats, dtype=torch.float32, device=theta.device)
+                if floats else None)
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = fn(theta.data_ptr(), phi.data_ptr(), g.data_ptr(),
                  out.data_ptr(), lse.data_ptr() if with_lse else None,
+                 work.data_ptr() if floats else None,
                  b, n, d, _DTYPE_CODE[theta.dtype], stream)
     _raise_on(err, lib, "nonlocal_attention")
     nonlocal_attention.launches += 1
@@ -295,8 +313,9 @@ def nonlocal_attention_bwd(theta: torch.Tensor, phi: torch.Tensor,
     size.restype = ctypes.c_longlong
     dtheta, dphi, dg = (torch.empty_like(theta), torch.empty_like(phi),
                         torch.empty_like(g))
-    # the kernel's f32 scratch (Delta; at bf16 also dtheta's f32 sums and
-    # the padded lse); it initialises what it reads
+    # the kernel's f32 scratch (bf16: dtheta's f32 sums and the padded lse
+    # and Delta; f32: each key block's partial dtheta, none when one block
+    # holds every key); it initialises what it reads
     workspace = torch.empty(size(b, n, d, _DTYPE_CODE[theta.dtype]),
                             dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):

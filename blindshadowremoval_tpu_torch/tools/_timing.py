@@ -54,7 +54,8 @@ from blindshadowremoval_tpu_torch.ops import nonlocal_attn  # noqa: F401
 
 # H100 SXM published dense peaks (NVIDIA H100 datasheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12      # the CUDA cores
+PEAK_TF32_FLOPS = 495e12    # the tensor cores on TF32 operands
 PEAK_BYTES = 3.35e12
 
 ITERS = 40            # bench.py:54
@@ -66,7 +67,7 @@ TRIAL_EPS = 1e-5      # the per-trial one (bench.py:134)
 # are the port's hand-written kernels (csrc/nonlocal_attn*.cu)
 _KERNEL_KINDS = (
     ("K1", ("attn_fwd",)),
-    ("K2", ("bwd_hopper", "bwd_prep", "bwd_dq", "bwd_delta", "bwd_dkdv")),
+    ("K2", ("bwd_hopper", "bwd_prep", "bwd_dq", "bwd_f32")),
     ("layout transposes (cuDNN NCHW <-> NHWC)", ("nchwToNhwc", "nhwcToNchw")),
     ("FFT (disc blurs)", ("fft",)),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit")),

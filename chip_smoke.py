@@ -4,7 +4,9 @@
 
 Builds the port's hand-written kernels from the sources in this checkout
 (one nvcc per source, started together) and fails if ptxas serialises the
-wgmma of a bf16 attention kernel or spills one, holds each kernel against
+wgmma of an attention kernel or spills a bf16 one, or if an f32 one runs
+no TF32 product on the tensor cores (its SASS, by cuobjdump; its
+registers and spills are printed), holds each kernel against
 its plain PyTorch version on the card and times it in turns with flash
 SDPA, forward and backward, runs the GSC
 generator against the TF-reference golden, serves a batch of requests
@@ -49,8 +51,9 @@ measurement tool of `blindshadowremoval_tpu_torch/tools/` once (phase 18:
 one JSON record each; the profilers must name K1, and for training K2;
 K1 and K2 at every shape the tools gave them), times K1 and K2 against
 their plain versions, SDPA and the bound at every (shape, dtype) phases
-9 to 18 launched them at, and, after phases 13 to 18, prints one JSON
-line with every kernel and, last,
+9 to 18 launched them at and K1 (with the logsumexp) and K2 in f32 at a
+full-width f32 train step's shapes, and, after phases 13 to 18, prints one
+JSON line with every kernel and, last,
 `{"ok": true, "device": {...}}`.  Any failure ends the run with a non-zero
 exit and no result line.  Exits 1 at once when CUDA
 is absent.  Imports nothing of JAX or of the JAX package.
@@ -180,6 +183,7 @@ from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     nonlocal_attention,
     nonlocal_attention_bwd,
     nonlocal_attention_bwd_reference,
+    nonlocal_attention_lse_reference,
     nonlocal_attention_reference,
 )
 from blindshadowremoval_tpu_torch.ops.calibration import calibrate_config
@@ -235,7 +239,7 @@ from blindshadowremoval_tpu_torch.tools import (
 from blindshadowremoval_tpu_torch.tools._timing import (
     PEAK_BF16_FLOPS,
     PEAK_BYTES,
-    PEAK_F32_FLOPS,
+    PEAK_TF32_FLOPS,
     device_ms,
     kernel_kind,
 )
@@ -290,6 +294,13 @@ BWD_CASES = [((64, 1024, 128), torch.bfloat16),     # the train step's shape
 # K2 timed in turns with flash SDPA's backward: the train step's shape and
 # the RGB variant's width at the same batch
 K2_TIMED = [(64, 1024, 128), (64, 1024, 256)]
+# K1's row logsumexp against the plain one: f32 max + log(sum of exps), a
+# few ulps of values near 5 (tests/test_torch_kernels_cuda.py's bound)
+LSE_TOLERANCE = (1e-4, 1e-5)
+# a full-width f32 train step's attention (64 views, both widths), which no
+# phase launches: K1 with the logsumexp and K2 checked and timed in the
+# table's cells
+F32_TRAIN_SHAPES = [(64, 1024, 128), (64, 1024, 256)]
 
 # the train path: GSC at 256 px, bf16, batch 32 (64 views a step, the size
 # of docs/perf.md's fit() measurements)
@@ -387,36 +398,48 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
 
 
-def attention_bound_ms(b: int, n: int, d: int, dtype: torch.dtype):
+def product_seconds(flops: float, dtype: torch.dtype) -> float:
+    """The least seconds in which the card does `flops` of matrix products
+    in `dtype`: bf16 at the dense bf16 rate; f32 to f32 accuracy, which one
+    TF32 pass misses, as three TF32 passes (3xTF32) at the dense TF32 rate,
+    less time than one pass on the CUDA cores (PEAK_F32_FLOPS)."""
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16_FLOPS
+    return 3.0 * flops / PEAK_TF32_FLOPS
+
+
+def attention_bound_ms(b: int, n: int, d: int, dtype: torch.dtype,
+                       lse: bool = False):
     """(least ms, "operations" | "bytes") for one attention call: two
-    N x N x D products per batch element, and three inputs read and one
-    output written once."""
-    flops = 4.0 * b * n * n * d
+    N x N x D products per batch element (product_seconds), and three
+    inputs read and one output written once, with the f32 row logsumexp
+    when `lse`."""
     nbytes = 4.0 * b * n * d * torch.tensor([], dtype=dtype).element_size()
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    nbytes += 4.0 * b * n if lse else 0.0
+    t_ops = product_seconds(4.0 * b * n * n * d, dtype)
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def attention_bwd_bound_ms(b: int, n: int, d: int, dtype: torch.dtype):
     """(least ms, "operations" | "bytes") for one K2 call: five N x N x D
-    products per batch element (S is needed by both passes); theta, phi, g,
-    out and dout read once, the f32 logsumexp read once, three gradients
-    written once."""
-    flops = 10.0 * b * n * n * d
+    products per batch element (S is needed by both passes;
+    product_seconds); theta, phi, g, out and dout read once, the f32
+    logsumexp read once, three gradients written once."""
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = 8.0 * b * n * d * es + 4.0 * b * n
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops = product_seconds(10.0 * b * n * n * d, dtype)
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_k1(gen, shape, dtype) -> float:
+def check_k1(gen, shape, dtype, with_lse: bool = False) -> float:
     """K1 against its plain version on 0.3-randn operands (batch element 1
-    at 50 randn in BOUNDARY_SHAPE), within KERNEL_TOLERANCE[dtype]; exits
-    on a disagreement.  Returns the max abs error."""
+    at 50 randn in BOUNDARY_SHAPE), within KERNEL_TOLERANCE[dtype], and
+    with `with_lse` its row logsumexp within LSE_TOLERANCE; exits on a
+    disagreement.  Returns the max abs error of the output."""
     dev = gen.device
     atol, rtol = KERNEL_TOLERANCE[dtype]
     t, p, g = (0.3 * torch.randn(*shape, generator=gen, device=dev)
@@ -426,19 +449,28 @@ def check_k1(gen, shape, dtype) -> float:
             x[1] = 50 * torch.randn(shape[1:], generator=gen, device=dev)
     t, p, g = t.to(dtype), p.to(dtype), g.to(dtype)
     with torch.no_grad():
-        out = nonlocal_attention(t, p, g)
+        if with_lse:
+            out, lse = _launch_fwd(t, p, g, with_lse=True)
+        else:
+            out = nonlocal_attention(t, p, g)
         torch.cuda.synchronize()
-        ref = nonlocal_attention_reference(t, p, g)
+        ref, ref_lse = nonlocal_attention_lse_reference(t, p, g)
         torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     # the largest |out - ref| - rtol * |ref|, held against atol
     excess = (diff - rtol * ref.float().abs()).max().item()
     ok = bool(torch.isfinite(out).all()) and excess <= atol
+    note = ""
+    if with_lse:
+        lse_excess = _excess(lse, ref_lse, LSE_TOLERANCE[1])
+        ok = ok and lse_excess <= LSE_TOLERANCE[0]
+        note = (f", lse max(err - {LSE_TOLERANCE[1]:g}|ref|) "
+                f"{lse_excess:.3e} (atol {LSE_TOLERANCE[0]:g})")
     print(f"{shape} {str(dtype):15s} max_abs_err {err:.3e}, mean |ref| "
           f"{ref.float().abs().mean().item():.3e}, max(err - {rtol:.3g}"
-          f"|ref|) {excess:.3e} (atol {atol:g}) {'ok' if ok else 'FAIL'}",
-          flush=True)
+          f"|ref|) {excess:.3e} (atol {atol:g}){note} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"K1 disagrees with its plain version at {shape}")
     return err
@@ -553,6 +585,7 @@ def main() -> int:
         faults = ptxas_faults(logs[name], label, keys, count)
         if faults:
             raise SystemExit(f"{label}'s bf16 kernels: " + "; ".join(faults))
+    f32_kernel_report(logs)
 
     phase("3 kernel K1 vs its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -845,11 +878,23 @@ def main() -> int:
     k2_err = max(k2_err, tools["k2_err"])
     stop_table()
     t0 = time.perf_counter()
+    print("K1 with the logsumexp and K2 in f32 at a full-width train step's "
+          "shapes, against their plain versions:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    with no_tf32():
+        for shape in F32_TRAIN_SHAPES:
+            max_err = max(max_err, check_k1(gen, shape, torch.float32,
+                                            with_lse=True))
+            k2_err = max(k2_err, check_k2_case(gen, shape, torch.float32))
+    cells = table_seen | {(name, shape, torch.float32)
+                          for shape in F32_TRAIN_SHAPES
+                          for name in ("nonlocal_attention_lse",
+                                       "nonlocal_attention_bwd")}
     print(f"the table's cells: K1 and K2 at the {len(table_seen)} (wrapper, "
-          "shape, dtype) phases 9-18 launched them at in this process, "
-          "device time a call:", flush=True)
+          "shape, dtype) phases 9-18 launched them at in this process, and "
+          "the f32 train step's, device time a call:", flush=True)
     k1_cells, k2_cells = kernel_cells(
-        torch.Generator(device=dev).manual_seed(20), table_seen)
+        torch.Generator(device=dev).manual_seed(20), cells)
     print(f"the table's cells: {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("12 kernels")
@@ -1286,7 +1331,7 @@ VARIANT_K1_TIMED = [(2, 1024, 128), (16, 1024, 128), (10, 1024, 256),
 ATTN_CALLS = {"gsc": 6, "tsm": 6, "rgb": 3}
 OUT_NAMES = ("gs", "con_rgb", "mask22", "dif")
 # K2's kernels, by name (ptxas and the profiler)
-K2_KERNELS = ("bwd_hopper", "bwd_prep", "bwd_dq", "bwd_delta", "bwd_dkdv")
+K2_KERNELS = ("bwd_hopper", "bwd_prep", "bwd_dq", "bwd_f32")
 
 
 def golden_forward_inputs(variant: str):
@@ -1839,6 +1884,77 @@ def ptxas_faults(log: str, label: str, keys: tuple, count: int) -> list[str]:
     print(f"ptxas: {len(seen)} bf16 {label} kernels, "
           f"{'no wgmma serialisation, no spills' if not faults else 'FAULTS'}")
     return faults
+
+
+# (library, label, name substring of its f32 kernels that run the
+# products, how many): phase 2 reports their registers and spills, and
+# fails unless each one's SASS runs TF32 on the tensor cores (HMMA ...
+# TF32, mma.sync; HGMMA ... TF32, wgmma)
+F32_CHECKED = (
+    ("nonlocal_attn", "K1", "attn_fwd_f32", len(SUPPORTED_D)),
+    ("nonlocal_attn_bwd", "K2", "bwd_f32", len(SUPPORTED_D)),
+)
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ptxas's report."""
+    usage, current, spills = {}, "", (0, 0)
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif "spill" in line and current:
+            found = re.findall(r"(\d+) bytes spill", line)
+            spills = ((int(found[0]), int(found[1])) if len(found) == 2
+                      else (0, 0))
+        elif "Used" in line and "registers" in line and current:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            usage[current] = (regs, *spills)
+            current = ""
+    return usage
+
+
+def sass_tensor_ops(path) -> dict:
+    """{kernel: (tensor-core instructions, of them on TF32)} in a built
+    library's SASS, by cuobjdump from nvcc's toolkit."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = found.group(1)
+            counts[current] = [0, 0]
+        elif current and re.search(r"\bH(G)?MMA\.", line):
+            counts[current][0] += 1
+            counts[current][1] += ".TF32" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def f32_kernel_report(logs: dict) -> None:
+    """Phase 2 on the f32 kernels: each one's registers and spills
+    (ptxas) and its tensor-core instructions (SASS); exits unless every
+    f32 kernel of F32_CHECKED runs TF32 products on the tensor cores."""
+    for name, label, key, count in F32_CHECKED:
+        usage = ptxas_usage(logs[name])
+        sass = sass_tensor_ops(_build.library_path(name))
+        kernels = sorted(k for k in usage if key in k)
+        if len(kernels) != count:
+            raise SystemExit(f"ptxas reported on {len(kernels)} f32 {label} "
+                             f"kernels, expected {count}")
+        for kernel in kernels:
+            regs, stores, loads = usage[kernel]
+            ops, tf32 = sass.get(kernel, (0, 0))
+            width = re.search(r"ILi(\d+)E", kernel)
+            print(f"{label} f32 {key}<{width.group(1) if width else '?'}>: "
+                  f"{regs} registers, spills {stores} B stored / {loads} B "
+                  f"loaded; SASS {ops} tensor-core instructions, {tf32} on "
+                  f"TF32", flush=True)
+            if tf32 == 0:
+                raise SystemExit(f"{label}'s f32 kernel {kernel} runs no TF32 "
+                                 "product on the tensor cores")
 
 
 def _excess(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
@@ -4474,15 +4590,18 @@ def kernel_cells(gen, seen) -> tuple[list, list]:
     plain version, the SDPA library call (flash for bf16, the
     memory-efficient backend for f32, the math backend where either
     refuses the shape) and the bound: device time a call with the calls
-    queued ahead, SDPA's backward as `sdpa_backward`'s replay.  Returns
-    ([K1 cells], [K2 cells])."""
+    queued ahead, SDPA's backward as `sdpa_backward`'s replay.  The wrapper
+    "nonlocal_attention_lse" is K1 writing the row logsumexp too, against
+    the plain version that computes it.  Returns ([K1 cells], [K2
+    cells])."""
     k1_cells, k2_cells = [], []
     for name, shape, dtype in sorted(seen, key=str):
         b, n, d = shape
         t, p, g, do = k2_operands(gen, shape, dtype)
         q4, k4, v4 = (x[:, None].clone().requires_grad_() for x in (t, p, g))
         do4 = do[:, None].contiguous()
-        fwd = name == "nonlocal_attention"
+        fwd = name != "nonlocal_attention_bwd"
+        with_lse = name == "nonlocal_attention_lse"
 
         def library(backend):
             with sdpa_kernel(backend):
@@ -4505,10 +4624,13 @@ def kernel_cells(gen, seen) -> tuple[list, list]:
                 lib_ms, lib_ops = library(backend)
             with torch.no_grad():
                 if fwd:
-                    ms = device_ms(lambda: _launch_fwd(t, p, g, False), 20)
-                    plain_ms = device_ms(
-                        lambda: nonlocal_attention_reference(t, p, g), 20)
-                    bound_ms, bound_by = attention_bound_ms(b, n, d, dtype)
+                    plain = (nonlocal_attention_lse_reference if with_lse
+                             else nonlocal_attention_reference)
+                    ms = device_ms(lambda: _launch_fwd(t, p, g, with_lse),
+                                   20)
+                    plain_ms = device_ms(lambda: plain(t, p, g), 20)
+                    bound_ms, bound_by = attention_bound_ms(b, n, d, dtype,
+                                                            with_lse)
                 else:
                     out, lse = _launch_fwd(t, p, g, with_lse=True)
                     ms = device_ms(lambda: nonlocal_attention_bwd(
@@ -4523,7 +4645,12 @@ def kernel_cells(gen, seen) -> tuple[list, list]:
                     library_backend=backend.name.lower(), bound_ms=bound_ms,
                     library_ops=lib_ops,
                     bound_by=bound_by, path="phases 9-18")
-        print(f"{'K1' if fwd else 'K2'} {shape} {cell['dtype']}: kernel "
+        if with_lse:
+            cell.update(lse=True, path="f32 train step at full width")
+        elif shape in F32_TRAIN_SHAPES and dtype == torch.float32 and not fwd:
+            cell.update(path="f32 train step at full width")
+        print(f"{'K1+lse' if with_lse else 'K1' if fwd else 'K2'} {shape} "
+              f"{cell['dtype']}: kernel "
               f"{ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound "
               f"{bound_ms:.4f} ms, {bound_by}), plain {plain_ms:.4f} ms, "
               f"sdpa {cell['library_backend']} {lib_ms:.4f} ms", flush=True)

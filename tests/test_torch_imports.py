@@ -1,6 +1,7 @@
-"""The port stands alone: neither blindshadowremoval_tpu_torch nor
-chip_smoke.py imports JAX, Flax, cv2, PIL, natsort, sklearn or the JAX
-package (the machine with the card has none of them)."""
+"""The port stands alone: neither blindshadowremoval_tpu_torch nor its
+scripts at the root (chip_smoke.py, compare_kernels.py) import JAX, Flax,
+cv2, PIL, natsort, sklearn or the JAX package (the machine with the card
+has none of them)."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ FORBIDDEN = ("jax", "flax", "cv2", "PIL", "natsort", "sklearn",
 
 def _port_sources():
     files = sorted((ROOT / "blindshadowremoval_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py"]
 
 
 def _imported_roots(path: Path):

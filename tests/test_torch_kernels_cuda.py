@@ -27,6 +27,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the f32 kernels (3xTF32 on the tensor cores) at B=1 and 80, N=64 (one
+# key tile of K1 at D=128, one key block of K2), 65, 200 and 1024, D=128
+# and 256
+F32_CASES = [(1, 64, 128), (80, 64, 256), (1, 65, 256), (80, 65, 128),
+             (1, 200, 128), (80, 200, 256), (1, 1024, 256), (80, 1024, 128),
+             (80, 1024, 256)]
+
 # K1's cases: the main path's widths, ragged tails of the 128- and 64-key
 # tiles, a single row (N=1), one row past a tile (N=129), 300 batch
 # elements of one partial query tile each (N=64), and the batches of the
@@ -44,7 +51,7 @@ FWD_CASES = [
     (2, 129, 128, torch.bfloat16),
     (2, 1000, 256, torch.bfloat16),
     (300, 64, 128, torch.bfloat16),
-]
+] + [(b, n, d, torch.float32) for b, n, d in F32_CASES]
 
 
 @pytest.mark.cuda
@@ -140,7 +147,7 @@ def _operands(device, b, n, d, dtype, seed=0):
     (2, 129, 128, torch.bfloat16),     # one key past a 128-key block
     (2, 1000, 256, torch.bfloat16),    # ragged 64-key tiles
     (300, 64, 128, torch.bfloat16),    # short N, the largest gradients
-])
+] + [(b, n, d, torch.float32) for b, n, d in F32_CASES])
 def test_bwd_kernel_matches_plain_on_card(cuda_device, b, n, d, dtype):
     t, p, g, do = _operands(cuda_device, b, n, d, dtype)
     leaves = [x.clone().requires_grad_() for x in (t, p, g)]
@@ -226,3 +233,69 @@ def test_bwd_kernel_rejects_misaligned_view(cuda_device):
         x = torch.zeros(2, 64, 128, dtype=torch.bfloat16, device=cuda_device)
         nonlocal_attention_bwd(x, x, x, x, lse, x.float())
     assert nonlocal_attention_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(16, 1024, 128), (3, 200, 256),
+                                   (8, 64, 128)])
+def test_f32_kernels_repeat_bitwise(cuda_device, b, n, d):
+    # the f32 kernels sum in a fixed order (no atomics; K2's dtheta adds
+    # its key blocks' partial sums in block order): the same inputs give
+    # the same bits, forward, logsumexp and all three gradients
+    t, p, g, do = _operands(cuda_device, b, n, d, torch.float32)
+    first = _launch_fwd(t, p, g, with_lse=True)
+    second = _launch_fwd(t, p, g, with_lse=True)
+    grads = [nonlocal_attention_bwd(t, p, g, *first, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(first + grads[0], second + grads[1]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_ignore_tf32_switches(cuda_device):
+    # 3xTF32 is the kernels' own arithmetic: PyTorch's TF32 switches,
+    # which steer cuBLAS and cuDNN, change none of their bits
+    t, p, g, do = _operands(cuda_device, 4, 200, 128, torch.float32)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    runs = []
+    try:
+        for allow in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            torch.backends.cudnn.allow_tf32 = allow
+            out, lse = _launch_fwd(t, p, g, with_lse=True)
+            runs.append((out, lse, *nonlocal_attention_bwd(t, p, g, out, lse,
+                                                           do)))
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_f32_kernels_keep_batch_elements_apart(cuda_device, d):
+    # as the bf16 tests above, in f32: batch element 1 is 50 times its
+    # neighbours, so a tile read past row N into the next element, or a
+    # row stored past it, would move elements 0 and 2 out of tolerance
+    # (element 1's scores of ~1e5 lie outside the tolerances' derivation)
+    t, p, g, do = _operands(cuda_device, 3, 200, d, torch.float32)
+    for x in (t, p, g, do):
+        x[1] *= 50
+    keep = [0, 2]
+    out, lse = _launch_fwd(t, p, g, with_lse=True)
+    grads = nonlocal_attention_bwd(t, p, g, out, lse, do)
+    torch.cuda.synchronize()
+    atol, rtol = KERNEL_TOLERANCE[torch.float32]
+    torch.testing.assert_close(
+        out[keep], nonlocal_attention_reference(t[keep], p[keep], g[keep]),
+        atol=atol, rtol=rtol)
+    ref = nonlocal_attention_bwd_reference(t[keep], p[keep], g[keep],
+                                           do[keep])
+    for name, a, r in zip(("dtheta", "dphi", "dg"), grads, ref):
+        assert bool(torch.isfinite(a).all()), name
+        atol, rtol = bwd_tolerance(r, torch.float32)
+        torch.testing.assert_close(a[keep], r, atol=atol, rtol=rtol,
+                                   msg=name)

@@ -297,3 +297,216 @@ def test_bwd_tolerance_scales_with_the_gradient():
     assert bwd_tolerance(ref, torch.bfloat16) == (2.0 * share, rtol)
     assert bwd_tolerance(0 * ref, torch.bfloat16) == (
         BWD_SCALE_FLOOR * share, rtol)
+
+
+# ------------------------------------------------------- f32: 3xTF32
+# The f32 kernels run both products of K1 and all five of K2 on the tensor
+# cores as 3xTF32 (csrc/hopper.cuh): each operand x splits into big =
+# tf32(x) and small = x - big, which the tensor cores read truncated to
+# TF32, and a product sums small.big + big.small + big.big in f32.  The
+# emulations below run those products in plain PyTorch and show that the
+# f32 tolerances, unchanged from the CUDA-core kernels, admit them and
+# reject one TF32 pass or a split that drops small.big.
+
+# keys per tile of K1's f32 kernel (csrc/nonlocal_attn.cu, f32::kKeys)
+# and keys per block of K2's (csrc/nonlocal_attn_bwd.cu, f32::kKeys)
+F32_KEY_TILE = 32
+F32_BWD_KEY_BLOCK = 64
+
+
+@pytest.fixture
+def two_threads():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits) to nearest, ties away
+    from zero, as the kernels' split does (hopper.cuh:split_tf32); f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x truncated to TF32, as the tensor cores read an f32 operand."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b, passes="3x"):
+    """a @ b as the f32 kernels take it: the products of TF32 parts summed
+    in f32.  "3x": small.big + big.small + big.big; "1x": big.big alone
+    (one TF32 pass); "2x": big.small + big.big (small.big dropped)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small = _tf32_truncated(a - a_big)
+    b_small = _tf32_truncated(b - b_big)
+    out = torch.matmul(a_big, b_big)
+    if passes in ("3x", "2x"):
+        out = out + torch.matmul(a_big, b_small)
+    if passes == "3x":
+        out = out + torch.matmul(a_small, b_big)
+    return out
+
+
+def _emulate_f32_kernel(t, p, g, passes="3x"):
+    """K1's f32 numerics (csrc/nonlocal_attn.cu, f32::attn_fwd_f32) in
+    plain PyTorch: S = theta phi^T as `passes` TF32 products (at D=256 its
+    two halves of D summed apart, then added), an online softmax in f32
+    over F32_KEY_TILE-key tiles, each tile's exp(S - running max) g as
+    `passes` products added into the f32 accumulator, one divide at the
+    end.  Returns (out, row logsumexp)."""
+    b, n, d = g.shape
+    halves = [slice(0, d)] if d == 128 else [slice(0, 128), slice(128, d)]
+    s = sum(_mm3(t[..., h], p[..., h].transpose(1, 2), passes)
+            for h in halves)
+    tile = F32_KEY_TILE
+    m = torch.full((b, n, 1), -float("inf"))
+    total = torch.zeros(b, n, 1)
+    acc = torch.zeros(b, n, d)
+    for n0 in range(0, n, tile):
+        block = s[..., n0:n0 + tile]
+        mx = torch.maximum(m, block.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        e = torch.exp(block - mx)
+        total = total * alpha + e.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3(e, g[:, n0:n0 + tile], passes)
+        m = mx
+    return acc / total, (m + torch.log(total))[..., 0]
+
+
+def _emulate_f32_bwd(t, p, g, do, passes="3x"):
+    """K2's f32 numerics (csrc/nonlocal_attn_bwd.cu, f32::bwd_f32): the
+    emulated forward's output and logsumexp, Delta = rowsum(dO o O) in
+    f32, S^T = phi theta^T and dP^T = g dO^T as `passes` products, P =
+    exp(S - lse), dS = P o (dP - Delta), dg = P^T dO and dphi = dS^T theta
+    as `passes` products, dtheta = dS phi as one product per block of
+    F32_BWD_KEY_BLOCK keys, added in block order."""
+    o, lse = _emulate_f32_kernel(t, p, g, passes)
+    delta = (do * o).sum(-1, keepdim=True)
+    s = _mm3(p, t.transpose(1, 2), passes).transpose(1, 2)
+    dp = _mm3(g, do.transpose(1, 2), passes).transpose(1, 2)
+    prob = torch.exp(s - lse[..., None])
+    ds = prob * (dp - delta)
+    dg = _mm3(prob.transpose(1, 2), do, passes)
+    dph = _mm3(ds.transpose(1, 2), t, passes)
+    dt = torch.zeros(t.shape)
+    for j in range(0, t.shape[1], F32_BWD_KEY_BLOCK):
+        dt = dt + _mm3(ds[..., j:j + F32_BWD_KEY_BLOCK],
+                       p[:, j:j + F32_BWD_KEY_BLOCK], passes)
+    return dt, dph, dg
+
+
+def _f32_case(b, n, d):
+    """theta, phi, g of 0.3 randn and dout of randn (numpy seed 0), the
+    scales the f32 kernels are held at on the card."""
+    rng = np.random.default_rng(0)
+    t, p, g = (torch.tensor(x) for x in _ops(rng, b, n, d))
+    do = torch.tensor(rng.normal(size=(b, n, d)).astype(np.float32))
+    return t, p, g, do
+
+
+def _within_f32_tolerance(out, ref):
+    atol, rtol = KERNEL_TOLERANCE[torch.float32]
+    return bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def _within_f32_bwd_tolerance(out, ref):
+    for o, r in zip(out, ref):
+        atol, rtol = bwd_tolerance(r, torch.float32)
+        if not bool(((o - r).abs() <= atol + rtol * r.abs()).all()):
+            return False
+    return True
+
+
+# every f32 shape at which phases 9-18 of chip_smoke.py launch K1 (the
+# evaluators at N=1024, the 128 px goldens at N=256, the f32 train steps
+# at N=64), and ragged N at both widths
+F32_FWD_SHAPES = [(1, 1024, 128), (2, 1024, 128), (4, 1024, 128),
+                  (5, 1024, 128), (8, 1024, 128), (10, 1024, 128),
+                  (16, 1024, 128), (40, 1024, 128), (80, 1024, 128),
+                  (10, 1024, 256), (80, 1024, 256), (2, 256, 128),
+                  (1, 256, 256), (4, 64, 128), (8, 64, 128), (8, 64, 256),
+                  (2, 65, 128), (2, 200, 128), (2, 65, 256), (2, 200, 256)]
+
+
+@pytest.mark.parametrize("b,n,d", F32_FWD_SHAPES)
+def test_f32_tolerance_admits_3xtf32(two_threads, b, n, d):
+    t, p, g, _ = _f32_case(b, n, d)
+    ref = nonlocal_attention_reference(t, p, g)
+    out, lse = _emulate_f32_kernel(t, p, g)
+    assert _within_f32_tolerance(out, ref)
+    ref_lse = torch.logsumexp(torch.matmul(t, p.transpose(1, 2)), dim=-1)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("passes", ["1x", "2x"])
+@pytest.mark.parametrize("b,n,d", [(8, 1024, 128), (10, 1024, 256),
+                                   (4, 64, 128), (2, 200, 256)])
+def test_f32_tolerance_rejects_fewer_passes(two_threads, passes, b, n, d):
+    t, p, g, _ = _f32_case(b, n, d)
+    ref = nonlocal_attention_reference(t, p, g)
+    assert not _within_f32_tolerance(_emulate_f32_kernel(t, p, g, passes)[0],
+                                     ref)
+
+
+# every f32 shape at which phases 9-18 launch K2 (the f32 train steps at
+# N=64), the full-width train step's batch cut to 8 and 4 at N=1024, and
+# ragged N at both widths
+F32_BWD_SHAPES = [(4, 64, 128), (8, 64, 128), (8, 64, 256), (8, 1024, 128),
+                  (4, 1024, 256), (2, 65, 128), (2, 200, 128),
+                  (2, 65, 256), (2, 200, 256)]
+
+
+@pytest.mark.parametrize("b,n,d", F32_BWD_SHAPES)
+def test_f32_bwd_tolerance_admits_3xtf32(two_threads, b, n, d):
+    t, p, g, do = _f32_case(b, n, d)
+    ref = nonlocal_attention_bwd_reference(t, p, g, do)
+    assert _within_f32_bwd_tolerance(_emulate_f32_bwd(t, p, g, do), ref)
+
+
+@pytest.mark.parametrize("passes", ["1x", "2x"])
+@pytest.mark.parametrize("b,n,d", [(8, 64, 128), (8, 64, 256),
+                                   (2, 200, 128)])
+def test_f32_bwd_tolerance_rejects_fewer_passes(two_threads, passes, b, n,
+                                                d):
+    t, p, g, do = _f32_case(b, n, d)
+    ref = nonlocal_attention_bwd_reference(t, p, g, do)
+    out = _emulate_f32_bwd(t, p, g, do, passes)
+    assert not _within_f32_bwd_tolerance(out, ref)
+
+
+def test_tf32_rounding_and_split():
+    # 1 + 2^-11 is a tie: away from zero; the split keeps what one pass
+    # drops, so big + small as the tensor cores read it is x to ~2^-21
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 0.1])
+    big = _tf32(x)
+    assert big.tolist()[:3] == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                1.0 + 2.0 ** -10]
+    small = _tf32_truncated(x - big)
+    assert bool(((big + small - x).abs() <= 2.0 ** -21 * x.abs()).all())
+    assert bool(((big - x).abs() > 2.0 ** -14 * x.abs())[3])
+
+
+@pytest.mark.parametrize("fn,shape,expected,bound_by", [
+    ("fwd", (80, 1024, 128), 0.2603, "operations"),
+    ("fwd", (80, 1024, 256), 0.5206, "operations"),
+    ("fwd", (1, 1024, 128), 0.0033, "operations"),
+    ("bwd", (64, 1024, 128), 0.5206, "operations"),
+    ("bwd", (4, 64, 128), 0.0003, "bytes"),
+])
+def test_f32_bounds_are_three_tf32_passes(fn, shape, expected, bound_by):
+    # chip_smoke.py's bounds: f32 products to f32 accuracy as three TF32
+    # passes at 495 TFLOP/s, against the bytes
+    import chip_smoke
+
+    bound = (chip_smoke.attention_bound_ms if fn == "fwd"
+             else chip_smoke.attention_bwd_bound_ms)
+    ms, by = bound(*shape, torch.float32)
+    assert ms == pytest.approx(expected, abs=5e-5)
+    assert by == bound_by
+    # bf16 stays one pass at the dense bf16 rate
+    ms16, _ = bound(*shape, torch.bfloat16)
+    assert ms16 < ms

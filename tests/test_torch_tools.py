@@ -351,7 +351,7 @@ def test_kernel_kinds_name_k1_and_k2():
     assert _timing.kernel_kind("attn_fwd_bf16") == "K1"
     assert _timing.kernel_kind("attn_fwd_f32") == "K1"
     for name in ("bwd_hopper_bf16", "bwd_prep_bf16", "bwd_dq_cast",
-                 "bwd_delta_f32", "bwd_dkdv_f32", "bwd_dq_f32"):
+                 "bwd_f32", "bwd_dq_sum_f32"):
         assert _timing.kernel_kind(name) == "K2"
     assert _timing.kernel_kind("void at::native::elementwise_kernel") == \
         "other elementwise"
