@@ -14,12 +14,20 @@ barycentric weights are >= -eps.  A pixel on a shared edge can still land
 in the other triangle when the two frameworks round a weight differently;
 piecewise-linear interpolation is continuous across the edge, so only the
 hull boundary (hit versus miss) moves a value by more than float noise.
+
+`device_geometry_maps` takes the CUDA kernel (csrc/rasterize.cu) on CUDA
+inputs: one launch for the four maps of every view, the same weights,
+values and coverage as this plain path on the card, bit for bit.  Other
+inputs take the plain path, which stays the CPU route and the reference
+that the card's tests hold the kernel to.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -31,6 +39,7 @@ from blindshadowremoval_tpu_torch.geometry.landmarks import (
     UV_TABLE,
     forehead_points,
 )
+from blindshadowremoval_tpu_torch.ops import _build
 from blindshadowremoval_tpu_torch.ops.filters import box_blur
 
 # Fixed triangle-count pad so topologies stack into one batch tensor
@@ -79,7 +88,7 @@ def rasterize_linear(points: torch.Tensor, triangles: torch.Tensor,
     points = points.to(torch.float32)
     values = values.to(torch.float32)
     triangles = triangles.to(device=dev, dtype=torch.long)
-    lin = torch.arange(s, dtype=torch.float32, device=dev) / (s - 1)
+    lin = _grid(s, dev)
     xs = lin.repeat(s)                                   # (N,) column coord
     ys = lin.repeat_interleave(s)                        # (N,) row coord
 
@@ -207,6 +216,40 @@ def _reg_in_static() -> tuple[np.ndarray, np.ndarray]:
 _UV_VALUES = np.stack(
     [UV_TABLE[:, 1], UV_TABLE[:, 0], UV_TABLE[:, 2]], 1).astype(np.float32)
 
+# the geometry maps made, by path: "kernel" (one launch of
+# csrc/rasterize.cu, counted where `geometry_maps_kernel` launches it) or
+# "plain" (`geometry_maps_plain`); one count a `device_geometry_maps` call
+RASTER_CALLS = {"kernel": 0, "plain": 0}
+_calls_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=16)
+def _constants(device: torch.device) -> dict:
+    """The maps' constant operands on `device`, uploaded once: reg_in's
+    canonical points (LM_REF + anchors) and their int32 topology, the
+    anchors, the UV values and `_gauss5`'s taps.  A host-to-device copy
+    from pageable memory waits on the stream, so a call that made its
+    constants each time would hold the host until the card caught up.
+    Made outside inference mode, so that autograd may save them."""
+    with torch.inference_mode(False):
+        ref_pts, ref_tris = _reg_in_static()
+        return {"ref_pts": torch.from_numpy(ref_pts).to(device),
+                "ref_tris": torch.from_numpy(ref_tris).to(device),
+                "anchors": torch.from_numpy(ANCHOR_POINTS).to(device),
+                "uv_vals": torch.from_numpy(_UV_VALUES).to(device),
+                "taps": _gauss5_taps(device)}
+
+
+@functools.lru_cache(maxsize=16)
+def _grid(size: int, device: torch.device) -> torch.Tensor:
+    """The grid coordinate of each row or column, (0..size-1) / (size-1),
+    computed on `device` once.  `rasterize_linear` and the kernel both
+    take these very values, so that the kernel's pixels sit where the plain
+    path's do, whichever way the device's division by a scalar rounds."""
+    with torch.inference_mode(False):
+        return torch.arange(size, dtype=torch.float32,
+                            device=device) / (size - 1)
+
 
 def device_geometry_maps(lm: torch.Tensor, face_pts: torch.Tensor,
                          uv_tris: torch.Tensor, face_tris: torch.Tensor,
@@ -217,26 +260,42 @@ def device_geometry_maps(lm: torch.Tensor, face_pts: torch.Tensor,
     uv_tris/face_tris/reg_tris [B,T,3] int (-1 padded; reg_tris
     triangulates lm + anchors).  Returns {"uv" [B,S,S,3], "reg" [B,S,S,6]
     (reg_in ∥ reg_out), "face" [B,S,S,1]}, the same maps as
-    generate_uv_map / generate_offset_map / generate_face_region.
+    generate_uv_map / generate_offset_map / generate_face_region.  CUDA
+    inputs take the kernel (`geometry_maps_kernel`), others the plain path
+    (`geometry_maps_plain`); `RASTER_CALLS` counts each.
     """
+    maps = (geometry_maps_kernel if lm.device.type == "cuda"
+            else geometry_maps_plain)
+    return maps(lm, face_pts, uv_tris, face_tris, reg_tris, size)
+
+
+def _count(path: str) -> None:
+    with _calls_lock:
+        RASTER_CALLS[path] += 1
+
+
+def geometry_maps_plain(lm: torch.Tensor, face_pts: torch.Tensor,
+                        uv_tris: torch.Tensor, face_tris: torch.Tensor,
+                        reg_tris: torch.Tensor, size: int) -> dict:
+    """`device_geometry_maps` in plain PyTorch, on any device: four calls
+    of `rasterize_linear` and `_gauss5`."""
     dev = lm.device
     b = lm.shape[0]
     lm = lm.to(torch.float32)
-    ref_pts_np, ref_tris_np = _reg_in_static()
-    ref_pts = torch.from_numpy(ref_pts_np).to(dev)
-    ref_tris = torch.from_numpy(ref_tris_np).to(dev)
-    anchors = torch.from_numpy(ANCHOR_POINTS).to(dev).expand(b, -1, -1)
+    const = _constants(dev)
+    ref_pts = const["ref_pts"]
+    anchors = const["anchors"].expand(b, -1, -1)
     lm_anch = torch.cat([lm, anchors], dim=1)            # (B, 84, 2)
 
     def stack_vals(delta):
         return torch.cat([delta[..., 1:2], delta[..., 0:1],
                           torch.zeros_like(delta[..., :1])], dim=-1)
 
-    uv_vals = torch.from_numpy(_UV_VALUES).to(dev).expand(b, -1, -1)
+    uv_vals = const["uv_vals"].expand(b, -1, -1)
     uv = rasterize_linear(lm, uv_tris, uv_vals, size)
     # reg_in: target = canonical (static topology), values = lm - ref
     reg_in = rasterize_linear(ref_pts.expand(b, -1, -1),
-                              ref_tris.expand(b, -1, -1),
+                              const["ref_tris"].expand(b, -1, -1),
                               stack_vals(lm_anch - ref_pts), size)
     # reg_out: target = per-sample landmarks, values = ref - lm
     reg_out = rasterize_linear(lm_anch, reg_tris,
@@ -245,17 +304,84 @@ def device_geometry_maps(lm: torch.Tensor, face_pts: torch.Tensor,
                       device=dev)
     face = rasterize_linear(face_pts, face_tris, ones, size)
     face = _gauss5((face > 0).to(torch.float32))
+    _count("plain")
     return {"uv": uv, "reg": torch.cat([reg_in, reg_out], dim=-1),
             "face": face}
+
+
+@functools.lru_cache(maxsize=1)
+def _raster_kernel():
+    """(library, its launch function) of csrc/rasterize.cu, built at the
+    first call."""
+    lib = _build.load("rasterize")
+    fn = lib.bsr_geometry_maps
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def geometry_maps_kernel(lm: torch.Tensor, face_pts: torch.Tensor,
+                         uv_tris: torch.Tensor, face_tris: torch.Tensor,
+                         reg_tris: torch.Tensor, size: int) -> dict:
+    """`device_geometry_maps` on a CUDA device in one launch of the kernel
+    (csrc/rasterize.cu), on the current stream of the inputs' device.  The
+    inputs' shapes are `device_geometry_maps`'s; the topologies are read
+    as int32 (the staged wires' type: converted otherwise), their indices
+    in [-1, points).  Raises on inputs the kernel does not take."""
+    dev = lm.device
+    if dev.type != "cuda":
+        raise ValueError(f"geometry_maps_kernel: the inputs must lie on a "
+                         f"CUDA device, got {dev}")
+    const = _constants(dev)
+    lm = lm.to(dtype=torch.float32).contiguous()
+    face_pts = face_pts.to(device=dev, dtype=torch.float32).contiguous()
+    tris = [t.to(device=dev, dtype=torch.int32).contiguous()
+            for t in (uv_tris, face_tris, reg_tris)]
+    b, n_lm = lm.shape[:2]
+    if (lm.shape != (b, len(_UV_VALUES), 2)
+            or face_pts.shape[0] != b or face_pts.shape[2:] != (2,)
+            or any(t.dim() != 3 or t.shape[0] != b or t.shape[2] != 3
+                   for t in tris)):
+        raise ValueError(
+            f"geometry_maps_kernel: expected lm [B,{len(_UV_VALUES)},2], "
+            f"face_pts [B,P,2] and topologies [B,T,3]; got "
+            f"{[tuple(x.shape) for x in (lm, face_pts, *tris)]}")
+    uv = torch.empty((b, size, size, 3), dtype=torch.float32, device=dev)
+    reg = torch.empty((b, size, size, 6), dtype=torch.float32, device=dev)
+    face = torch.empty((b, size, size, 1), dtype=torch.float32, device=dev)
+    lib, fn = _raster_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(lm.data_ptr(), face_pts.data_ptr(),
+                 *(t.data_ptr() for t in tris),
+                 const["ref_pts"].data_ptr(), const["ref_tris"].data_ptr(),
+                 const["anchors"].data_ptr(), const["uv_vals"].data_ptr(),
+                 _grid(size, dev).data_ptr(), const["taps"].data_ptr(),
+                 uv.data_ptr(), reg.data_ptr(), face.data_ptr(),
+                 b, size, n_lm, len(ANCHOR_POINTS), face_pts.shape[1],
+                 *(t.shape[1] for t in tris),
+                 const["ref_tris"].shape[0], stream)
+    _build.raise_on_error(err, lib, "device_geometry_maps")
+    _count("kernel")
+    return {"uv": uv, "reg": reg, "face": face}
+
+
+@functools.lru_cache(maxsize=16)
+def _gauss5_taps(device: torch.device) -> torch.Tensor:
+    """The 5 taps of `_gauss5` on `device` (OpenCV's sigma-from-ksize
+    convention, sigma=1.1), computed there once."""
+    with torch.inference_mode(False):
+        n = torch.arange(-2, 3, dtype=torch.float32, device=device)
+        sigma = 0.3 * ((5 - 1) * 0.5 - 1) + 0.8
+        k = torch.exp(-0.5 * (n / sigma) ** 2)
+        return k / k.sum()
 
 
 def _gauss5(x: torch.Tensor) -> torch.Tensor:
     """5x5 Gaussian blur of [B,H,W,C] with OpenCV's sigma-from-ksize
     convention (sigma=1.1) and edge padding."""
-    n = torch.arange(-2, 3, dtype=torch.float32, device=x.device)
-    sigma = 0.3 * ((5 - 1) * 0.5 - 1) + 0.8
-    k = torch.exp(-0.5 * (n / sigma) ** 2)
-    k = k / k.sum()
+    k = _gauss5_taps(x.device)
     return _separable(x, k, k)
 
 

@@ -24,7 +24,8 @@ BUILD_DIR = _PKG / "_build"
 
 # library name -> its source, relative to the package
 SOURCES = {"nonlocal_attn": "csrc/nonlocal_attn.cu",
-           "nonlocal_attn_bwd": "csrc/nonlocal_attn_bwd.cu"}
+           "nonlocal_attn_bwd": "csrc/nonlocal_attn_bwd.cu",
+           "rasterize": "csrc/rasterize.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -124,5 +125,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build(name)
-            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
+            # every library exports it, for raise_on_error
+            lib.bsr_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.bsr_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
         return lib
+
+
+def raise_on_error(err: int, lib: ctypes.CDLL, name: str) -> None:
+    """Raises unless `err`, the cudaError_t value a launch of `lib`
+    returned, is 0 (success)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           + lib.bsr_cuda_error_string(err).decode()
+                           + f" (error {err})")

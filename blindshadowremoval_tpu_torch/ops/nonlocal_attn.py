@@ -245,27 +245,13 @@ def _check(name: str, tensors: dict) -> tuple[int, int, int]:
     return b, n, d
 
 
-def _library(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    lib.bsr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.bsr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           + lib.bsr_cuda_error_string(err).decode()
-                           + f" (error {err})")
-
-
 def _launch_fwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
                 with_lse: bool):
     """K1.  Returns (out, lse): lse is the f32 row logsumexp [B, N] that K2
     takes, written only when `with_lse`; else None."""
     b, n, d = _check("nonlocal_attention",
                      {"theta": theta, "phi": phi, "g": g})
-    lib = _library("nonlocal_attn")
+    lib = _build.load("nonlocal_attn")
     fn = lib.bsr_nonlocal_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -286,7 +272,7 @@ def _launch_fwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
                  out.data_ptr(), lse.data_ptr() if with_lse else None,
                  work.data_ptr() if floats else None,
                  b, n, d, _DTYPE_CODE[theta.dtype], stream)
-    _raise_on(err, lib, "nonlocal_attention")
+    _build.raise_on_error(err, lib, "nonlocal_attention")
     nonlocal_attention.launches += 1
     return out, lse
 
@@ -304,7 +290,7 @@ def nonlocal_attention_bwd(theta: torch.Tensor, phi: torch.Tensor,
             or tuple(lse.shape) != (b, n) or not lse.is_contiguous()):
         raise ValueError("nonlocal_attention_bwd: lse must be a contiguous "
                          f"f32 [B, N] tensor on {theta.device}")
-    lib = _library("nonlocal_attn_bwd")
+    lib = _build.load("nonlocal_attn_bwd")
     fn = lib.bsr_nonlocal_attn_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -324,7 +310,7 @@ def nonlocal_attention_bwd(theta: torch.Tensor, phi: torch.Tensor,
                  out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                  workspace.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(),
                  dg.data_ptr(), b, n, d, _DTYPE_CODE[theta.dtype], stream)
-    _raise_on(err, lib, "nonlocal_attention_bwd")
+    _build.raise_on_error(err, lib, "nonlocal_attention_bwd")
     nonlocal_attention_bwd.launches += 1
     return dtheta, dphi, dg
 

@@ -10,7 +10,9 @@ registers and spills are printed), holds each kernel against
 its plain PyTorch version on the card and times it in turns with flash
 SDPA, forward and backward, runs the GSC
 generator against the TF-reference golden, serves a batch of requests
-through `ShadowRemovalService` (the serving path, counting kernel launches),
+through `ShadowRemovalService` (the serving path, counting kernel launches;
+the rasterizer's kernel held to its plain path on the served batch, bit
+for bit, and timed against it and its write bound),
 times the bench.py configuration, runs the GSC GAN train step at full width
 (the train path, counting launches of the forward and backward kernels) and
 an f32 step of each variant against the same step on the CPU, drives
@@ -122,9 +124,12 @@ from blindshadowremoval_tpu_torch.eval.serving import (
 from blindshadowremoval_tpu_torch.geometry.crop import offline_crop
 from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.geometry.triangulation import (
+    RASTER_CALLS,
     device_geometry_maps,
     generate_face_region,
     generate_uv_map,
+    geometry_maps_kernel,
+    geometry_maps_plain,
 )
 from blindshadowremoval_tpu_torch.models import blocks as blocks_module
 from blindshadowremoval_tpu_torch.models import GENERATORS, build_generator
@@ -333,6 +338,12 @@ CHECK_MOMENT_RTOL = 3e-2
 CHECK_ZERO_SHARE = 1e-5
 CHECK_STRAY_SHARE = 1e-4
 
+
+# the rasterizer's kernel against its plain path on phase 5's staged batch:
+# uv and reg bit for bit, the blurred face within this (the kernel's blur
+# sums its f32 taps in another order than the plain path's convolution;
+# tests/test_torch_kernels_cuda.py holds it to the same)
+RASTER_FACE_ATOL = 1e-6
 
 # the evaluation path (phase 10): K1 at the batches the evaluators give it
 # (one UCB image or SFW sample of 10 views; the fused UCB pass of 8 images),
@@ -634,14 +645,22 @@ def main() -> int:
     assert svc.device_geometry
     images, lms = synthetic_requests(SERVE_REQUESTS)
     nonlocal_attention.launches = 0
+    raster_before = dict(RASTER_CALLS)
     t0 = time.perf_counter()
     results = svc.remove_shadows(images, lms)
     serve_s = time.perf_counter() - t0
     main_launches = nonlocal_attention.launches
+    raster_serve = {k: RASTER_CALLS[k] - raster_before[k]
+                    for k in RASTER_CALLS}
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     print(f"{len(results)} requests in {n_batches} batches of "
           f"{SERVE_BATCH}: {serve_s:.2f} s wall (first call, host "
-          f"preprocessing included), K1 launches {main_launches}")
+          f"preprocessing included), K1 launches {main_launches}, "
+          f"rasterizer launches {raster_serve['kernel']} (plain path "
+          f"{raster_serve['plain']})")
+    if raster_serve != {"kernel": n_batches, "plain": 0}:
+        raise SystemExit(f"main path rasterized {raster_serve}, expected "
+                         f"the kernel once a batch ({n_batches})")
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -690,6 +709,7 @@ def main() -> int:
           f"ms, generator {gen_ms:.1f} ms, clip/gate/cast "
           f"{fwd_ms - geo_ms - gen_ms:.1f} ms; fetch and unpack "
           f"{batch_ms - fwd_ms:.1f} ms", flush=True)
+    raster = check_raster(staged[1:], cfg.img_size)
     del staged, maps
     if len(results) != SERVE_REQUESTS:
         raise SystemExit(f"served {len(results)} of {SERVE_REQUESTS}")
@@ -924,6 +944,20 @@ def main() -> int:
     # the sharded step's own launches: the NCCL rank's and both gloo ranks'
     par_train = [k for k in par_k1 if "train" in k]
     print(json.dumps({"kernels": [{
+        "name": "geometry_maps",
+        "route": "cuda",
+        "source": "blindshadowremoval_tpu_torch/csrc/rasterize.cu",
+        "replaces": "blindshadowremoval_tpu/geometry/triangulation.py:219",
+        "launches": RASTER_CALLS["kernel"],
+        "max_abs_err": raster["max_abs_err"],
+        "ms": raster["ms"],
+        "plain_ms": raster["plain_ms"],
+        "bound_ms": raster["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": {"serve": raster_serve["kernel"]},
+        "shapes": [dict(raster, path="serve")],
+    }, {
         "name": "nonlocal_attn_fwd",
         "route": "cuda",
         "source": "blindshadowremoval_tpu_torch/csrc/nonlocal_attn.cu",
@@ -996,6 +1030,41 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_raster(geo, size: int) -> dict:
+    """The rasterizer's kernel against its plain path on one staged batch
+    (`device_geometry_maps`'s inputs after the image): uv and reg bit for
+    bit, the blurred face within RASTER_FACE_ATOL, cuDNN's TF32 off for
+    the plain path's blur.  The kernel timed with its calls queued
+    (`device_ms`), the plain path by events; the bound is the maps' bytes
+    written at PEAK_BYTES."""
+    b = geo[0].shape[0]
+    with torch.inference_mode(), no_tf32():
+        kernel = geometry_maps_kernel(*geo, size)
+        plain = geometry_maps_plain(*geo, size)
+        for key in ("uv", "reg"):
+            diff = int((kernel[key] != plain[key]).sum())
+            if diff:
+                raise SystemExit(f"rasterizer kernel: {diff} {key} values "
+                                 f"differ from the plain path's")
+        err = float((kernel["face"] - plain["face"]).abs().max())
+        if not err <= RASTER_FACE_ATOL:
+            raise SystemExit(f"rasterizer kernel: face {err} from the "
+                             f"plain path's (limit {RASTER_FACE_ATOL})")
+        nbytes = sum(t.numel() * t.element_size() for t in kernel.values())
+        del kernel, plain
+        ms = device_ms(lambda: geometry_maps_kernel(*geo, size), iters=20)
+        plain_ms = cuda_ms(lambda: geometry_maps_plain(*geo, size),
+                           iters=2, warmup=1)
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    print(f"rasterizer kernel at B={b}, {size} px: uv and reg bit for bit "
+          f"with the plain path, face within {err:.2e}; {ms:.4f} ms a call "
+          f"(queued), plain path {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB written at {PEAK_BYTES / 1e12:.2f} TB/s)",
+          flush=True)
+    return {"shape": [b, size], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 @contextlib.contextmanager

@@ -26,6 +26,8 @@ def test_source_files_follow_quoted_includes(csrc_copy):
         "nonlocal_attn.cu", "hopper.cuh"]
     assert [p.name for p in _build.source_files("nonlocal_attn_bwd")] == [
         "nonlocal_attn_bwd.cu", "hopper.cuh"]
+    assert [p.name for p in _build.source_files("rasterize")] == [
+        "rasterize.cu"]
 
 
 def test_source_files_follow_nested_includes(csrc_copy):
@@ -43,6 +45,9 @@ def test_source_files_follow_nested_includes(csrc_copy):
     ("nonlocal_attn_bwd.cu", "nonlocal_attn_bwd", True),
     ("nonlocal_attn.cu", "nonlocal_attn_bwd", False),   # a source it does
     ("nonlocal_attn_bwd.cu", "nonlocal_attn", False),   # not include
+    ("rasterize.cu", "rasterize", True),
+    ("hopper.cuh", "rasterize", False),
+    ("rasterize.cu", "nonlocal_attn", False),
 ])
 def test_library_path_follows_what_the_source_includes(csrc_copy, edited,
                                                        name, moves):

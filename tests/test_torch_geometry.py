@@ -149,6 +149,63 @@ def test_device_geometry_maps(rng):
                                    atol=1e-5, err_msg=key)
 
 
+@pytest.mark.parametrize("b", [1, 3])
+def test_cpu_inputs_take_the_plain_path(rng, b):
+    # one count a call, on the plain path; the kernel's stays where it was
+    prims = [_geometry_primitives(lm) for lm in _face_lms(rng, b)]
+    keys = ("lm", "face_pts", "uv_tris", "face_tris", "reg_tris")
+    stacked = [torch.from_numpy(np.stack([p[k] for p in prims]))
+               for k in keys]
+    before = dict(tri.RASTER_CALLS)
+    maps = tri.device_geometry_maps(*stacked, S)
+    assert tri.RASTER_CALLS == {"kernel": before["kernel"],
+                                "plain": before["plain"] + 1}
+    plain = tri.geometry_maps_plain(*stacked, S)
+    for key in ("uv", "reg", "face"):
+        assert torch.equal(maps[key], plain[key]), key
+
+
+def test_plain_path_counts_where_it_runs(rng):
+    # a direct call of the plain path counts as the dispatcher's does, so
+    # that the count is of maps made, however they were asked for
+    prims = [_geometry_primitives(lm) for lm in _face_lms(rng, 2)]
+    keys = ("lm", "face_pts", "uv_tris", "face_tris", "reg_tris")
+    stacked = [torch.from_numpy(np.stack([p[k] for p in prims]))
+               for k in keys]
+    before = dict(tri.RASTER_CALLS)
+    tri.geometry_maps_plain(*stacked, S)
+    assert tri.RASTER_CALLS == {"kernel": before["kernel"],
+                                "plain": before["plain"] + 1}
+
+
+def test_kernel_takes_cuda_inputs_only(rng):
+    prims = _geometry_primitives(_face_lms(rng, 1)[0])
+    keys = ("lm", "face_pts", "uv_tris", "face_tris", "reg_tris")
+    with pytest.raises(ValueError, match="CUDA"):
+        tri.geometry_maps_kernel(
+            *(torch.from_numpy(prims[k][None]) for k in keys), S)
+
+
+def test_map_constants_are_made_once():
+    cpu = torch.device("cpu")
+    const = tri._constants(cpu)
+    assert tri._constants(cpu) is const
+    ref_pts, ref_tris = tri._reg_in_static()
+    np.testing.assert_array_equal(const["ref_pts"].numpy(), ref_pts)
+    assert const["ref_tris"].dtype == torch.int32
+    np.testing.assert_array_equal(const["ref_tris"].numpy(), ref_tris)
+    np.testing.assert_array_equal(const["anchors"].numpy(),
+                                  landmarks.ANCHOR_POINTS)
+    # the anchors are the canonical points' tail, which reg_out's points
+    # (lm + anchors) and reg_in's values (lm + anchors - ref) rely on
+    np.testing.assert_array_equal(ref_pts[68:], landmarks.ANCHOR_POINTS)
+    assert const["taps"] is tri._gauss5_taps(cpu)
+    assert abs(float(const["taps"].sum()) - 1.0) < 1e-6
+    grid = tri._grid(S, cpu)
+    assert tri._grid(S, cpu) is grid
+    assert torch.equal(grid, torch.arange(S, dtype=torch.float32) / (S - 1))
+
+
 def test_generate_maps_match_goldens():
     g = np.load(GOLDEN)
     lm = g["lm"]

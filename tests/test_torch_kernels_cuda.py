@@ -1,14 +1,21 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card.
+versions, on the card: K1 and K2 (ops/nonlocal_attn.py) and the
+rasterizer of the device geometry maps (geometry/triangulation.py).
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one.
 This file imports torch and the port only, so it runs on a machine without
 JAX:  python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
+from blindshadowremoval_tpu_torch.data.dataset import _geometry_primitives
+from blindshadowremoval_tpu_torch.geometry import triangulation
+from blindshadowremoval_tpu_torch.geometry.landmarks import LM_REF
 from blindshadowremoval_tpu_torch.ops.nonlocal_attn import (
     KERNEL_TOLERANCE,
     _launch_fwd,
@@ -299,3 +306,187 @@ def test_f32_kernels_keep_batch_elements_apart(cuda_device, d):
         atol, rtol = bwd_tolerance(r, torch.float32)
         torch.testing.assert_close(a[keep], r, atol=atol, rtol=rtol,
                                    msg=name)
+
+
+# ---------------------------------------------------------------- rasterizer
+
+GEOMETRY_KEYS = ("lm", "face_pts", "uv_tris", "face_tris", "reg_tris")
+GOLDEN_LM = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                                 "goldens.npz"))["lm"]
+
+
+def _landmark_sets(n, seed=0):
+    """n landmark sets: the goldens' landmarks, then LM_REF jittered by
+    0.005-0.02 (a face's worth of pose and shape)."""
+    rng = np.random.default_rng(seed)
+    sets = [GOLDEN_LM.astype(np.float32)]
+    while len(sets) < n:
+        scale = rng.uniform(0.005, 0.02)
+        sets.append((LM_REF + rng.normal(scale=scale, size=LM_REF.shape)
+                     ).astype(np.float32))
+    return sets[:n]
+
+
+def _stack(views, device):
+    return [torch.from_numpy(np.stack([v[k] for v in views])).to(device)
+            for k in GEOMETRY_KEYS]
+
+
+def _plain_maps(geo, size):
+    """The plain path on the card, with cuDNN's TF32 off for the face
+    map's blur (the kernel's blur is f32)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return triangulation.geometry_maps_plain(*geo, size)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _assert_maps_match(kernel, plain):
+    """uv and reg bit for bit, the blurred face within 1e-6.  The latter
+    also makes the face's coverage equal: at the first pixel (row-major)
+    where two coverages differ, the blurred maps differ two rows up and two
+    columns left (clamped) by at least the smallest tap squared, ~0.005."""
+    for key in ("uv", "reg"):
+        assert kernel[key].shape == plain[key].shape, key
+        diff = (kernel[key] != plain[key]).nonzero()
+        assert len(diff) == 0, (key, len(diff), diff[:5].tolist())
+    assert kernel["face"].shape == plain["face"].shape
+    err = (kernel["face"] - plain["face"]).abs().max().item()
+    assert err <= 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 256])
+@pytest.mark.parametrize("b", [1, 10, 64, 128])
+def test_geometry_kernel_matches_plain_on_card(cuda_device, b, size):
+    views = [_geometry_primitives(lm) for lm in _landmark_sets(b, seed=b)]
+    geo = _stack(views, cuda_device)
+    before = dict(triangulation.RASTER_CALLS)
+    kernel = triangulation.device_geometry_maps(*geo, size)
+    torch.cuda.synchronize()
+    assert triangulation.RASTER_CALLS == {
+        "kernel": before["kernel"] + 1, "plain": before["plain"]}
+    _assert_maps_match(kernel, _plain_maps(geo, size))
+
+
+def _edge_case_views(size):
+    """Four views: (0) a sliver and a zero-area triangle (den guarded to
+    1e-12), put first in every topology, whose points sit on one pixel
+    column: the sliver holds the column between its ends, the zero-area
+    triangle the rest of it, far outside its bounding box; (1) every
+    topology all padding; (2) landmarks snapped
+    to the pixel grid, so edges shared by two triangles and the hull's
+    boundary run through pixel centres; (3) LM_REF as it is."""
+    lin = triangulation._grid(size, torch.device("cpu")).numpy()
+    col = size // 2
+    lm = _landmark_sets(2, seed=7)[1]
+    lm[0] = (lin[col], 0.2)
+    lm[16] = (lin[col], 0.8)
+    lm[8] = (lin[col] + 1e-6, 0.5)
+    odd = _geometry_primitives(lm)
+    for key in ("uv_tris", "face_tris", "reg_tris"):
+        odd[key] = np.concatenate(
+            [[[0, 16, 8], [0, 0, 16]], odd[key][:-2]]).astype(np.int32)
+    empty = _geometry_primitives(LM_REF.astype(np.float32))
+    for key in ("uv_tris", "face_tris", "reg_tris"):
+        empty[key] = np.full_like(empty[key], -1)
+    snapped = (np.round(_landmark_sets(3, seed=8)[2] * (size - 1))
+               / (size - 1)).astype(np.float32)
+    return [odd, empty, _geometry_primitives(snapped),
+            _geometry_primitives(LM_REF.astype(np.float32))], col
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 256])
+def test_geometry_kernel_edge_cases(cuda_device, size):
+    views, col = _edge_case_views(size)
+    geo = _stack(views, cuda_device)
+    kernel = triangulation.geometry_maps_kernel(*geo, size)
+    torch.cuda.synchronize()
+    plain = _plain_maps(geo, size)
+    # the cases do what they are for: the zero-area triangle holds pixels
+    # of its column above and below its bounding box, and the view of all
+    # padding has no hit outside reg_in (the static canonical topology)
+    assert bool(plain["uv"][0, 0, col].ne(0).any())
+    assert bool(plain["uv"][0, size - 1, col].ne(0).any())
+    assert not bool(plain["uv"][1].ne(0).any())
+    assert not bool(plain["reg"][1, ..., 3:].ne(0).any())
+    assert not bool(plain["face"][1].ne(0).any())
+    _assert_maps_match(kernel, plain)
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_keeps_views_apart(cuda_device):
+    # each view of a batch of 10 distinct faces, rasterized alone, gives
+    # the same bits as in the batch
+    size = 256
+    views = [_geometry_primitives(lm) for lm in _landmark_sets(10, seed=3)]
+    batch = triangulation.geometry_maps_kernel(
+        *_stack(views, cuda_device), size)
+    for i in (0, 4, 9):
+        alone = triangulation.geometry_maps_kernel(
+            *_stack(views[i:i + 1], cuda_device), size)
+        for key in ("uv", "reg", "face"):
+            assert torch.equal(batch[key][i:i + 1], alone[key]), (i, key)
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_is_one_launch(cuda_device):
+    # one kernel a call, counted where it launches, and no host-to-device
+    # copy: the constants are uploaded once per device, the staged int32
+    # topologies taken as they are
+    views = [_geometry_primitives(lm) for lm in _landmark_sets(10)]
+    geo = _stack(views, cuda_device)
+    before = dict(triangulation.RASTER_CALLS)
+    triangulation.device_geometry_maps(*geo, 256)
+    triangulation.geometry_maps_kernel(*geo, 256)
+    torch.cuda.synchronize()
+    assert triangulation.RASTER_CALLS == {
+        "kernel": before["kernel"] + 2, "plain": before["plain"]}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        triangulation.device_geometry_maps(*geo, 256)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in device]
+    assert [n for n in names if "geometry_maps" in n] and len(names) == 1, \
+        names
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_on_a_second_device():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda", 1)
+    views = [_geometry_primitives(lm) for lm in _landmark_sets(4)]
+    geo = _stack(views, dev)
+    with torch.cuda.device(0):      # the current device is another card
+        kernel = triangulation.device_geometry_maps(*geo, 64)
+    torch.cuda.synchronize(dev)
+    assert kernel["uv"].device == dev
+    with torch.cuda.device(dev):
+        _assert_maps_match(kernel, _plain_maps(geo, 64))
+
+
+@pytest.mark.cuda
+def test_service_forward_takes_the_kernel(cuda_device):
+    from blindshadowremoval_tpu_torch.config import get_config
+    from blindshadowremoval_tpu_torch.eval.serving import (
+        ShadowRemovalService,
+    )
+
+    cfg = get_config("in_the_wild", img_size=64, n_res=2,
+                     compute_dtype="float32")
+    svc = ShadowRemovalService(cfg, None, batch_size=2, device=cuda_device)
+    rng = np.random.default_rng(0)
+    image = rng.uniform(size=(220, 200, 3)).astype(np.float32)
+    lm = (LM_REF * 130 + 35).astype(np.float32)
+    before = dict(triangulation.RASTER_CALLS)
+    out = svc.remove_shadows([image], [lm])
+    assert triangulation.RASTER_CALLS == {
+        "kernel": before["kernel"] + 1, "plain": before["plain"]}
+    assert np.isfinite(out[0]["pred"]).all()
