@@ -8,7 +8,15 @@ thread; the window closes when the last one's result is in (or a minute
 past the last due time, after which a request counts as missing).  Each
 request's latency runs from when it was due to when its future held the
 result, so a stall of the submitting thread counts against the requests
-behind it; how late the submitter ran is printed beside the result.
+behind it; how late the submitter ran is printed beside the result, with
+what the frontend's threads did in the window, timed from outside by
+host-clock spans on the service (harness/clock.py) that set-up puts on
+after the warm-up and `release` takes off: each batch's collector,
+hand-off and forward ms, and each thread's busy share.
+
+The process hosts the frontend with the malloc tunables the traffic file
+names, if any (harness/malloc.py), set before anything is built and put
+back in `release`.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import time
 
 import numpy as np
 
-from bench_h100.harness import inputs, serve
+from bench_h100.harness import clock, inputs, malloc, serve
 
 WAIT_AFTER_S = 60.0
 
@@ -27,6 +35,7 @@ def setup(run) -> None:
     from blindshadowremoval_tpu_torch.eval.serving import BatchingFrontend
 
     traffic = run.cell.traffic
+    run.state["malloc"] = malloc.apply(traffic.get("malloc", {}))
     svc, _, photos, lms = serve.build(run, traffic["batch_size"])
     fe = BatchingFrontend(svc, max_delay_ms=traffic["max_delay_ms"])
     run.state["frontend"] = fe
@@ -37,6 +46,7 @@ def setup(run) -> None:
         f.result()
     for i in range(3):
         fe.submit(photos[i], lms[i]).result()
+    run.state["clock"] = clock.time_service(svc)
 
 
 def install_spans(run, spans) -> None:
@@ -47,6 +57,12 @@ def release(run) -> None:
     fe = run.state.get("frontend")
     if fe is not None:
         fe.close()
+    host = run.state.pop("clock", None)
+    if host is not None:
+        host.restore()
+    undo = run.state.pop("malloc", None)
+    if undo is not None:
+        undo()
     serve.release(run)
 
 
@@ -67,6 +83,8 @@ def offer(run, rate: float, seconds: float) -> dict:
                 done[k] = t
         return mark
 
+    host = st["clock"]
+    host.clear()
     b0, r0 = fe.batches_dispatched, fe.requests_served
     futs, late = [], []
     t0 = time.perf_counter()
@@ -95,19 +113,16 @@ def offer(run, rate: float, seconds: float) -> dict:
     lat_ms = 1e3 * np.asarray(lat)
     late_ms = 1e3 * np.asarray(late)
     st["answers"] = answers
+    threads = clock.summarize(host.records, end - t0)
     return {"window_s": end - t0, "attempted": len(due), "failed": missing,
             "units": len(answers), "latency_ms": lat_ms,
             "batches": fe.batches_dispatched - b0,
             "served": fe.requests_served - r0,
-            "metrics": {"latency_p95_ms": float(np.percentile(lat_ms, 95))},
-            "notes": [_quantiles("submitter lateness ms", late_ms),
-                      _quantiles("latency ms", lat_ms)]}
-
-
-def _quantiles(what: str, ms: np.ndarray) -> str:
-    q = {p: float(np.percentile(ms, p)) for p in (50, 95, 99)}
-    return (f"{what}: p50 {q[50]!r} p95 {q[95]!r} p99 {q[99]!r} max "
-            f"{float(ms.max())!r} over {len(ms)} requests")
+            "metrics": {"latency_p50_ms": float(np.percentile(lat_ms, 50))},
+            "threads": threads, "late_ms": late_ms,
+            "notes": [clock.quantiles("submitter lateness ms", late_ms),
+                      clock.quantiles("latency ms", lat_ms)]
+            + clock.notes(threads)}
 
 
 def window(run, seconds: float) -> dict:

@@ -1,16 +1,18 @@
 """Spans recorded from the benchmark's side, around the calls into each
-layer of the program, in the traced run only.
+layer of the program: in the traced run, and the open loop's host clock
+(harness/clock.py) in every run.
 
 `Spans.wrap(owner, attr, name)` replaces `owner.attr` (a bound method of
 an instance, or a function of a module) by a wrapper that records the
-host-clock interval of each call and opens a `torch.profiler`
-`record_function(name)` range around it, so the device's kernels launched
-inside can be attributed.  A target that is not there raises: a span
-never reads 0 because its layer moved.
+host-clock interval of each call and, with `ranges`, opens a
+`torch.profiler` `record_function(name)` range around it, so the device's
+kernels launched inside can be attributed.  A target that is not there
+raises: a span never reads 0 because its layer moved.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -23,8 +25,10 @@ class MissingSpanTarget(RuntimeError):
 
 
 class Spans:
-    def __init__(self):
+    def __init__(self, ranges: bool = True):
         self.records: list[tuple[str, int, int]] = []   # (name, t0, t1) ns
+        self._range = (torch.profiler.record_function if ranges
+                       else lambda name: contextlib.nullcontext())
         self._undo: list = []
         self._lock = threading.Lock()
 
@@ -38,7 +42,7 @@ class Spans:
 
         @functools.wraps(original)
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with self._range(name):
                 t0 = time.perf_counter_ns()
                 try:
                     return original(*args, **kwargs)
@@ -57,6 +61,10 @@ class Spans:
             else:
                 delattr(owner, attr)
         self._undo.clear()
+
+    def clear(self) -> None:
+        with self._lock:
+            self.records.clear()
 
     def durations_ms(self, name: str) -> list[float]:
         return [(t1 - t0) / 1e6 for n, t0, t1 in self.records if n == name]

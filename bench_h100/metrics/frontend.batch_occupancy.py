@@ -4,7 +4,7 @@ taken as their change across the window."""
 
 LAYER = "frontend (eval/serving.py:BatchingFrontend)"
 UNIT = "requests"
-MOVES = "latency_p95_ms"
+MOVES = "latency_p50_ms"
 
 
 def read(run):

@@ -9,11 +9,12 @@ reference under `bench_h100/reference/`, and prints one JSON line last on
 standard output: `correct`, `attempted`, `failed`, `metrics` (the cell's
 end-to-end metrics, or with `--trace 1` its per-layer metrics read from a
 torch.profiler trace of the window), `device`, with `--trace 1` a
-`breakdown`, and last `checks`, each compared number beside its limit
-(also the last lines of standard error).  Exits non-zero, with no result,
-without enough CUDA cards, when the program is missing, when JAX or the
-JAX package was loaded, or when a per-layer metric of the cell found
-nothing to read.
+`breakdown`, the window's `notes` (what the driver saw besides the
+metrics; also on standard error), and last `checks`, each compared number
+beside its limit (also the last lines of standard error).  Exits
+non-zero, with no result, without enough CUDA cards, when the program is
+missing, when JAX or the JAX package was loaded, or when a per-layer
+metric of the cell found nothing to read.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ def read_per_layer(run: Run) -> tuple[dict, list]:
 def execute(cell, seed: int, seconds: float, traced: bool, device) -> dict:
     """One run of `cell` on `device`: set-up, the window (traced or not),
     the metrics, then the check of every answer.  Returns the result line
-    as a dict, with `checks` last, the window's `notes`, and `unread`: the
+    as a dict: the window's `notes`, then `checks`, then `unread`: the
     per-layer metrics that found nothing to read."""
     import torch
 
@@ -157,8 +158,8 @@ def execute(cell, seed: int, seconds: float, traced: bool, device) -> dict:
               "metrics": metrics, "device": record}
     if breakdown is not None:
         result["breakdown"] = breakdown
-    result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
     result["notes"] = run.window.get("notes", [])
+    result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
     result["unread"] = unread
     return result
 
@@ -192,7 +193,7 @@ def main(argv=None) -> int:
     if unread:
         return _fail(f"no result: {', '.join(unread)} found nothing to "
                      f"read in {cell.name}", 6)
-    for line in result.pop("notes"):
+    for line in result["notes"]:
         print(line, file=sys.stderr)
     for n, c in result["checks"].items():
         print(f"check {n} {c['value']!r} limit {c['limit']!r}",

@@ -109,3 +109,19 @@ def test_check_budget_fits_full_benchmark():
     """24 cells at this run length fit the check's 43,200 s."""
     runs = 2 + 14 * 24
     assert runs * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
+
+
+def test_open_half_traffic():
+    """The open loop at half its knee: one submitter's Poisson arrivals at
+    a rate on the grid of 4/s, batches of 64 within 5 ms, the batch cell's
+    64-photo pool, and the process's malloc tunables."""
+    traffic = json.loads((HERE / "traffic" / "open-half.json").read_text())
+    assert set(traffic) == {"driver", "loop", "batch_size", "max_delay_ms",
+                            "rate_per_s", "malloc", "pool"}
+    assert traffic["driver"] == "serve_open"
+    # large buffers stay in the heap: glibc's largest mmap threshold
+    assert traffic["malloc"]["M_MMAP_THRESHOLD"] == 32 * 2 ** 20
+    assert (traffic["batch_size"], traffic["max_delay_ms"]) == (64, 5.0)
+    assert traffic["rate_per_s"] > 0 and traffic["rate_per_s"] % 4 == 0
+    batch = json.loads((HERE / "traffic" / "batch256.json").read_text())
+    assert traffic["pool"] == batch["pool"] and traffic["pool"]["count"] == 64

@@ -173,7 +173,7 @@ def _run_module():
 
 
 @pytest.mark.parametrize("name", ["gsc-serve-batch", "tsm-video-f10",
-                                  "gsc-serve-open"])
+                                  "gsc-serve-open-half"])
 def test_every_listed_metric_reads_or_the_run_fails(name):
     """Each cell's per-layer metrics read from a trace that holds their
     spans, kernels and counters; a trace without them leaves every one
@@ -186,10 +186,14 @@ def test_every_listed_metric_reads_or_the_run_fails(name):
     run.trace = _trace()
     run.spans = SimpleNamespace(durations_ms=lambda span: [6.0, 6.5])
     run.window = {"units": 100, "window_s": 2.0, "batches": 4,
-                  "served": 66}
+                  "served": 66, "threads": {"collector_busy": 0.5},
+                  "latency_ms": torch.arange(1.0, 101.0).numpy()}
     metrics, unread = _run_module().read_per_layer(run)
     assert not unread and set(metrics) == {m["name"]
                                            for m in cell.per_layer}
+    if "frontend.latency_p95_ms" in metrics:
+        assert metrics["frontend.latency_p95_ms"]["value"] == \
+            pytest.approx(95.05)
     t = run.trace
     run.trace = tr.Trace(0.1, t.device, t.launches, {}, [])
     run.spans = SimpleNamespace(durations_ms=lambda span: [])
@@ -221,3 +225,90 @@ def test_far_share_counts_values_outside_the_envelope():
     assert far.tolist() == [[2 / 8, 0.0]]
     mae, tmae = cmp.gaps([got], [ref[0, 0]], "cpu")
     assert mae[0] == pytest.approx(np.abs(got).mean())
+
+
+def _collector_records():
+    """Two batches: the first preprocesses two requests (8 ms each) and
+    stages in 4 ms, its forward starts 5 ms later and takes 40 ms; the
+    second preprocesses one (8 ms), stages in 2 ms, and waits 30 ms for
+    the dispatcher.  Listed as the threads would finish them, out of start
+    order."""
+    return [("preprocess", 0, 8 * MS), ("preprocess", 8 * MS, 16 * MS),
+            ("stage", 16 * MS, 20 * MS), ("preprocess", 30 * MS, 38 * MS),
+            ("stage", 38 * MS, 40 * MS), ("forward_staged", 25 * MS, 65 * MS),
+            ("forward_staged", 70 * MS, 100 * MS)][::-1]
+
+
+def test_host_clock_batches_and_busy_shares():
+    from bench_h100.harness import clock
+
+    s = clock.summarize(_collector_records(), 0.2)
+    assert s["collector"].tolist() == [20.0, 10.0]
+    assert s["handoff"].tolist() == [5.0, 30.0]
+    assert s["forward"].tolist() == [40.0, 30.0]
+    assert s["collector_busy"] == pytest.approx(30 / 200)
+    assert s["preprocess_busy"] == pytest.approx(24 / 200)
+    assert s["stage_busy"] == pytest.approx(6 / 200)
+    assert s["dispatcher_busy"] == pytest.approx(70 / 200)
+    assert s["preprocess_ms"] == pytest.approx(8.0)
+    lines = clock.notes(s)
+    assert lines[0].startswith("collector busy share 0.15")
+    assert lines[1] == ("collector ms a batch: p50 15.0 p95 19.5 p99 19.9 "
+                        "max 20.0 over 2 batches")
+    reader = _reader("frontend.collector_busy_pct")
+    assert reader.read(SimpleNamespace(window={"threads": s})) == \
+        pytest.approx(15.0)
+    assert reader.read(SimpleNamespace(window={})) is None
+
+
+def test_host_clock_wraps_and_restores():
+    """The host-clock spans time each call under the method's name, open no
+    profiler range and return its result; `restore` leaves the instance as
+    it was, its class's method showing through again."""
+    from bench_h100.harness import clock
+
+    class Service:
+        def preprocess(self, x):
+            return x + 1
+
+        def stage(self, chunk):
+            return chunk
+
+        def forward_staged(self, staged, chunk):
+            return [staged]
+
+    svc = Service()
+    host = clock.time_service(svc)
+    assert set(vars(svc)) == {"preprocess", "stage", "forward_staged"}
+    with torch.autograd.profiler.record_function("outside"):
+        assert svc.preprocess(1) == 2 and svc.forward_staged(3, []) == [3]
+    assert [n for n, _, _ in host.records] == ["preprocess",
+                                                "forward_staged"]
+    host.clear()
+    assert host.records == []
+    host.restore()
+    assert vars(svc) == {}
+    assert svc.preprocess(1) == 2 and host.records == []
+
+
+def test_malloc_settings_apply_and_undo():
+    """Each named tunable goes to mallopt once, `undo` puts mallopt(3)'s
+    defaults back, and an unknown name or a refused value raises."""
+    from bench_h100.harness import malloc
+
+    calls = []
+
+    def mallopt(param, value):
+        calls.append((param, value))
+        return 1
+
+    undo = malloc.apply({"M_MMAP_THRESHOLD": 32 << 20, "M_TOP_PAD": 1 << 28},
+                        mallopt)
+    assert calls == [(-3, 32 << 20), (-2, 1 << 28)]
+    undo()
+    assert calls[2:] == [(-3, 128 * 1024), (-2, 128 * 1024)]
+    with pytest.raises(ValueError):
+        malloc.apply({"M_ARENA_MAX": 1}, mallopt)
+    with pytest.raises(RuntimeError):
+        malloc.apply({"M_TRIM_THRESHOLD": 1}, lambda p, v: 0)
+    malloc.apply({}, lambda p, v: 0)()      # nothing named: no call

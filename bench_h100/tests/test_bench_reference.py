@@ -147,7 +147,7 @@ def _execute(cell, monkeypatch=None):
     return run.execute(cell, SEED, 1.5, False, torch.device("cpu"))
 
 
-CELLS = ["gsc-serve-batch", "gsc-serve-open", "tsm-video-f10"]
+CELLS = ["gsc-serve-batch", "gsc-serve-open-half", "tsm-video-f10"]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -155,6 +155,34 @@ def test_sound_run_is_correct(name):
     result = _execute(_tiny(name))
     assert result["correct"], result["checks"]
     assert result["failed"] == 0 and result["attempted"] > 0
+    assert list(result)[-3:] == ["notes", "checks", "unread"]
+
+
+def test_open_loop_times_the_frontend_and_release_unwraps():
+    """The open-loop driver sets the mix's malloc tunables, times the
+    service's three calls from outside in an untraced window, prints each
+    batch's collector, hand-off and forward quantiles and the busy shares
+    in the result's notes, and takes its wrappers and tunables off in
+    `release`."""
+    cell = _tiny("gsc-serve-open-half")
+    run = _run_module().Run(cell, SEED, 1.0, False, torch.device("cpu"))
+    cell.driver.setup(run)
+    svc = run.state["svc"]
+    assert {"preprocess", "stage", "forward_staged"} <= set(vars(svc))
+    assert callable(run.state["malloc"])   # glibc took the mix's tunables
+    run.window = cell.driver.window(run, 1.0)
+    cell.driver.release(run)
+    assert not {"preprocess", "stage", "forward_staged"} & set(vars(svc))
+    assert "malloc" not in run.state
+    threads, notes = run.window["threads"], run.window["notes"]
+    assert len(threads["collector"]) == len(threads["forward"]) == \
+        len(threads["handoff"]) == run.window["batches"] > 0
+    assert 0 < threads["collector_busy"] < 1
+    assert (threads["handoff"] >= 0).all()
+    for what in ("submitter lateness ms", "collector busy share",
+                 "collector ms a batch", "hand-off wait ms a batch",
+                 "forward ms a batch"):
+        assert any(n.startswith(what) for n in notes), what
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -201,7 +229,7 @@ def _altered(original):
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
-@pytest.mark.parametrize("name", ["gsc-serve-batch", "gsc-serve-open"])
+@pytest.mark.parametrize("name", ["gsc-serve-batch", "gsc-serve-open-half"])
 def test_served_faults_are_not_correct(name, fault, monkeypatch):
     from blindshadowremoval_tpu_torch.eval.serving import ShadowRemovalService
 
